@@ -1,0 +1,50 @@
+"""Level-state adapters around the kernels, ported from `repro.kernels.ops`.
+
+They take the tree builder's state — presorted columns, per-tree leaf ids
+and bag weights, shared labels — with an explicit leading tree axis (one
+launch covers the whole tree batch, as `pallas_call`'s vmap rule did) and
+keep the reference's conventions: leaf 0 and w = 0 rows contribute
+nothing, and the stat width comes from the caller (`num_classes`), never
+from a device-to-host read of the labels.  The CUDA kernels mask their own
+ragged edges, so neither rows nor categories need padding here.
+"""
+from __future__ import annotations
+
+import torch
+
+from repro_torch.kernels import cat_hist, split_scan
+
+
+def stat_dim(num_classes: int, task: str) -> int:
+    return max(int(num_classes), 2) if task == "classification" else 3
+
+
+def split_scan_supersplit(sorted_vals, sorted_idx, leaf_of, w, labels, cand,
+                          totals, impurity="gini", task="classification",
+                          min_records=1.0):
+    """All-columns exact supersplit through the `split_scan` kernel.
+
+    sorted_vals/sorted_idx (m, n); leaf_of/w (T, n); labels (n,);
+    cand (T, m, L1) bool; totals (T, L1, S) — the level's per-leaf totals,
+    shared by every column (exact for classification) instead of being
+    recomputed per column.  Returns (gain, thr), each (T, m, L1).
+    """
+    return split_scan.split_scan(
+        sorted_vals.contiguous(), sorted_idx.contiguous(),
+        leaf_of.contiguous(), w.contiguous(),
+        labels.to(torch.float32).contiguous(), cand.contiguous(),
+        totals.contiguous(), impurity=impurity, task=task,
+        min_records=min_records)
+
+
+def categorical_tables(cat_cols, leaf_of, w, labels, *, V, Lp,
+                       task="classification", num_classes=2):
+    """Count tables (T, m_cat, Lp+1, V, S) through the `cat_hist` kernel.
+
+    cat_cols (m_cat, n) column-major categories; leaf_of/w (T, n);
+    labels (n,).  V is the (max) arity every column's table is padded to.
+    """
+    return cat_hist.cat_hist(
+        cat_cols.contiguous(), leaf_of.contiguous(), w.contiguous(),
+        labels.to(torch.float32).contiguous(), L1=Lp + 1, V=V,
+        num_stats=stat_dim(num_classes, task), task=task)
