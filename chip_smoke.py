@@ -9,17 +9,33 @@ Phases, each fatal on failure:
      source, all in parallel) into `build/repro_torch/`;
   2. hold each kernel against its plain PyTorch version on the card:
      split_scan at n=2^20 (T=2, m=3, L1 in {2, 65, 513}; gini, entropy,
-     variance; ties, ragged n) and cat_hist at n=2^20 (m=8, V in
-     {2, 1000, 10000}, L1 in {2, 65}), then both at the main path's shapes
-     with their times (CUDA events, median of several runs);
+     variance; ties, ragged n) and at L1 = 16,385 and 32,769 (n=2^18-37,
+     per-leaf state past a block's shared memory: phase 3's, then both
+     phases'); cat_hist at n=2^20 (m=8, V in {2, 1000, 10000}, L1 in
+     {2, 65}); feat_hist at n=2^20-37 (m=8, uint8 bins with B=255 and
+     uint16 with B=1024, W in {2, 65, 257}, slots with zeros,
+     classification and regression); a depth-16 exact fit on 2^18 noisy
+     numeric rows that must reach a padded frontier of 8192 (and grow the
+     same trees twice); then every kernel at its main path's shapes with
+     its times (CUDA events, median of several runs) — feat_hist on the
+     inputs of every level of one tree batch of fit (b) below;
   3. train `RandomForest(TreeParams(max_depth=10, backend="kernel"),
      num_trees=4, tree_batch=2)` on 2^23 Leo-shaped rows (3 numeric + 79
      categorical columns, arities log-spaced 2..10,000) made with numpy
      from --seed, with the launch counters set to 0 just before and read
      just after; a second identical fit must grow identical trees;
   4. predict 2^20 held-out rows, print the AUC, check a save/load round
-     trip, and check that a small fit on the card equals the same fit on
-     the CPU.
+     trip, check that small fits on the card (exact, and hist with
+     subtraction, classification and regression) equal the same fits on
+     the CPU, and that repeated small regression fits on the card are
+     identical;
+  5. hist mode on the card, `TreeParams(max_depth=10, backend="kernel",
+     split_mode="hist", num_bins=255)`, 4 trees, tree_batch=2, subtraction
+     on, each fit with the counters set to 0 just before and read just
+     after, repeated and compared: (a) the Leo-shaped rows of phase 3
+     (feat_hist + cat_hist; held-out AUC), (b) 2^23 rows of the paper's
+     "majority" family, 6 informative + 10 useless numeric columns
+     (feat_hist alone; per-level times and table bytes).
 Prints a JSON line with every kernel's numbers, the nvidia-smi line, and
 last `{"ok": true, "device": {...}}`.  Exits non-zero without a GPU.
 """
@@ -36,8 +52,10 @@ ROOT = Path(__file__).resolve().parent
 HBM_BYTES_PER_S = 3.35e12        # H100 SXM HBM3
 FP32_FLOP_PER_S = 67e12          # H100 SXM fp32, outside the tensor cores
 TIMED_RUNS = 5
-TREES, TREE_BATCH = 4, 2         # the phase-3 forest
-TEST_ROWS = 1 << 20              # held-out rows for phase 4
+TREES, TREE_BATCH = 4, 2         # the phase-3 and phase-5 forests
+TEST_ROWS = 1 << 20              # held-out rows for phases 4 and 5
+DEEP_L1 = 16385                  # split_scan past a block's shared memory
+HIST_BINS = 255                  # phase 5's bucket budget
 
 
 def log(msg: str) -> None:
@@ -109,10 +127,14 @@ def level_totals(leaf, w, y, L1, S, task):
     return tot.reshape(T, L1, S)
 
 
-def check_split_scan(args, dev, g, n, T, m, L1, impurity, task, C, timed):
+def check_split_scan(args, dev, g, n, T, m, L1, impurity, task, C, timed,
+                     plain_runs=3, layout=None):
     import torch
     from repro_torch.kernels import split_scan as ss
     S = C if task == "classification" else 3
+    if layout is not None and ss.state_layout(L1, S) != layout:
+        fail(f"split_scan L1={L1} S={S}: state layout "
+             f"{ss.state_layout(L1, S)}, expected {layout}")
     svals, sidx, leaf, w, y, cand = split_scan_inputs(g, n, T, m, L1, C,
                                                       task, dev)
     totals = level_totals(leaf, w, y, L1, S, task)
@@ -143,7 +165,8 @@ def check_split_scan(args, dev, g, n, T, m, L1, impurity, task, C, timed):
     if timed:
         row["ms"] = cuda_ms(lambda: ss.split_scan(*ins, **kw))
         row["plain_ms"] = cuda_ms(lambda: ss.split_scan_plain(*ins, **kw),
-                                  runs=3)
+                                  runs=plain_runs)
+        row["layout"] = ss.state_layout(L1, S)
         nbytes = ss.bound_bytes(T, m, n, L1, S)
         act = ((leaf > 0) & (w > 0)).sum().item() * m
         row["bound_ms"], row["bound_by"] = bound_ms(nbytes, act * 40)
@@ -226,6 +249,92 @@ def check_cat_hist(args, dev, g, n, T, m, L1, V, task, timed, inputs=None):
     return row
 
 
+def feat_inputs(g, n, T, m, W, B, bin_dtype, task, dev):
+    """Bin ids of `bin_dtype`, slots in [0, W) (a third of them 0), bag
+    weights in {0, 1, 2} and labels."""
+    import torch
+    x = torch.randint(0, B, (m, n), generator=g, device=dev,
+                      dtype=torch.int32)
+    x = (x.to(torch.uint8) if bin_dtype == torch.uint8
+         else x.to(torch.int16).view(torch.uint16))
+    slot = torch.randint(1, W, (T, n), generator=g, device=dev,
+                         dtype=torch.int32) if W > 1 else torch.zeros(
+        (T, n), dtype=torch.int32, device=dev)
+    slot = torch.where(torch.rand((T, n), generator=g, device=dev) < 1 / 3,
+                       0, slot).to(torch.int32)
+    w = torch.randint(0, 3, (T, n), generator=g, device=dev).float()
+    if task == "classification":
+        y = torch.randint(0, 2, (n,), generator=g, device=dev).float()
+    else:
+        y = torch.randn((n,), generator=g, device=dev) * 3 + 1
+    return x, slot, w, y
+
+
+def library_feat_index_add(x, slot, w, y, W, B, S, task):
+    """One PyTorch call computing the same tables: `index_add_` on flat
+    (tree, column, slot, bin) ids.  Ids and row stats are prepared outside
+    the timed call."""
+    import torch
+    from repro_torch.core import presort, splits
+    T, n = slot.shape
+    m = x.shape[0]
+    stats = splits.row_stats(y, w, S, task)
+    inb = (w > 0) & (slot > 0)
+    contrib = torch.where(inb[..., None], stats, 0.0)           # (T, n, S)
+    contrib = contrib[:, None].expand(T, m, n, S).reshape(-1, S)
+    base = torch.arange(T * m, device=x.device).reshape(T, m, 1)
+    flat = ((base * W + slot.long()[:, None]) * B
+            + presort.bin_ids(x).long()[None]).reshape(-1)
+
+    def call():
+        out = torch.zeros((T * m * W * B, S), device=x.device)
+        out.index_add_(0, flat, contrib)
+        return out
+    return call
+
+
+def check_feat_hist(args, dev, g, n, T, m, W, B, bin_dtype, task, timed,
+                    inputs=None):
+    import torch
+    from repro_torch.kernels import feat_hist as fh
+    S = 2 if task == "classification" else 3
+    x, slot, w, y = inputs or feat_inputs(g, n, T, m, W, B, bin_dtype, task,
+                                          dev)
+    kw = dict(W=W, B=B, num_stats=S, task=task)
+    tk = fh.feat_hist(x, slot, w, y, **kw)
+    tp = fh.feat_hist_plain(x, slot, w, y, **kw)
+    torch.cuda.synchronize()
+    err = (tk - tp).abs().max().item()
+    name = f"feat_hist {str(x.dtype)[6:]} B={B} W={W} {task}"
+    if float(tk[:, :, 0].abs().sum()) != 0.0:
+        fail(f"{name}: slot 0 is not discarded")
+    if task == "classification":
+        if not torch.equal(tk, tp):
+            fail(f"{name}: not bit-equal (max err {err})")
+    else:
+        again = fh.feat_hist(x, slot, w, y, **kw)
+        if not torch.equal(tk, again):
+            fail(f"{name}: not deterministic")
+        mag = fh.feat_hist_plain(x, slot, w, y.abs(), **kw)  # Σ|stat| per cell
+        if not bool(((tk - tp).abs() <= 1e-4 * mag + 1e-6).all()):
+            fail(f"{name}: max err {err}")
+    row = dict(n=n, T=T, m=m, W=W, B=B, bins=str(x.dtype)[6:], task=task,
+               max_abs_err=err, bit_equal=task == "classification")
+    del tk, tp
+    if timed:
+        row["ms"] = cuda_ms(lambda: fh.feat_hist(x, slot, w, y, **kw))
+        row["plain_ms"] = cuda_ms(lambda: fh.feat_hist_plain(x, slot, w, y,
+                                                             **kw), runs=1)
+        row["library_ms"] = cuda_ms(
+            library_feat_index_add(x, slot, w, y, W, B, S, task), runs=3)
+        adds = ((slot > 0) & (w > 0)).sum().item() * m
+        row["bound_ms"], row["bound_by"] = bound_ms(
+            fh.bound_bytes(T, m, n, W, B, S, x.element_size()), adds)
+    torch.cuda.empty_cache()
+    log(f"  {json.dumps(row)}")
+    return row
+
+
 def phase2(args, dev):
     import torch
     g = torch.Generator(device=dev)
@@ -247,6 +356,61 @@ def phase2(args, dev):
     for V in (2, 1000):
         check_cat_hist(args, dev, g, 1 << args.check_log2n, 2, 8, 65, V,
                        "regression", False)
+    import torch
+    for bin_dtype, B in ((torch.uint8, 255), (torch.uint16, 1024)):
+        for W in (2, 65, 257):
+            for task in ("classification", "regression"):
+                check_feat_hist(args, dev, g, n, 2, 8, W, B, bin_dtype, task,
+                                False)
+    # past a block's shared memory the per-leaf state lives in device
+    # memory: phase 3's from L1 = 16,385 leaves, phase 1's as well from
+    # L1 = 32,769; bit-equal to the plain version all the same
+    for L1, sums in ((DEEP_L1, "shared"), (2 * DEEP_L1 - 1, "global")):
+        check_split_scan(args, dev, g, (1 << 18) - 37, 2, 3, L1, "gini",
+                         "classification", 2, True, plain_runs=1,
+                         layout={"sums": sums, "best": "global"})
+
+
+def deep_fit(args, dev):
+    """An exact fit deep enough that split_scan keeps its per-leaf state
+    in device memory: TreeParams(max_depth=16, backend="kernel") on 2^18
+    rows of the "majority" family over 16 informative numeric columns,
+    with 30% of the labels flipped.  (With 6 informative columns the noise
+    splits turn lopsided past depth 8 and the frontier stays under 4096.)
+    It must reach a padded frontier of at least 8192, and a repeat must
+    grow the same trees."""
+    import numpy as np
+    import torch
+    from repro_torch.core import tree as tree_lib
+    from repro_torch.core.dataset import from_numpy
+    from repro_torch.core.forest import RandomForest
+    from repro_torch.data import synthetic
+    ds = synthetic.make_tabular("majority", 1 << 18, num_informative=16,
+                                num_useless=0, seed=args.seed)
+    flip = np.random.default_rng(args.seed + 1).random(ds.n) < 0.3
+    ds = from_numpy(ds.num, None, (ds.labels ^ flip).astype(np.int32))
+    params = tree_lib.TreeParams(max_depth=16, backend="kernel")
+
+    def fit():
+        return RandomForest(params, num_trees=2, seed=args.seed,
+                            tree_batch=2).fit(ds, collect_stats=True)
+
+    t0 = time.perf_counter()
+    rf = fit()
+    torch.cuda.synchronize()
+    fit_s = time.perf_counter() - t0
+    lp_max = max(tree_lib._pad_leaves(s.open_leaves, params.leaf_pad)
+                 for log_t in rf.level_stats for s in log_t)
+    again = fit()
+    log(f"  deep fit: depth <= 16 on n={ds.n} numeric rows with 30% label "
+        f"noise, {fit_s:.3f} s; largest padded frontier Lp = {lp_max}; "
+        f"nodes per tree {[t.num_nodes for t in rf.trees]}")
+    if lp_max < 8192:
+        fail(f"the deep fit reached Lp = {lp_max}, not 8192")
+    if not same_trees(rf.trees, again.trees):
+        fail("a repeat of the deep fit grew different trees")
+    log("  repeat deep fit grew identical trees")
+    return dict(fit_s=fit_s, lp_max=lp_max)
 
 
 # ---------------------------------------------------------------------------
@@ -271,6 +435,96 @@ def leo_dataset(seed: int, n: int, m_num: int = 3, m_cat: int = 79):
     y = (logit > 0).astype(np.int32)
     y ^= (rng.random(n) < 0.05).astype(np.int32)
     return num, cat, y, tuple(arities)
+
+
+def majority_dataset(seed: int, n: int):
+    """The paper's artificial "majority" family as the reference's hist
+    benchmark draws it: 6 informative + 10 useless float32 numeric
+    columns, label = whether most informative columns are positive."""
+    from repro_torch.data import synthetic
+    return synthetic.make_tabular("majority", n, num_informative=6,
+                                  num_useless=10, seed=seed)
+
+
+def hist_params(args):
+    from repro_torch.core import tree as tree_lib
+    return tree_lib.TreeParams(max_depth=args.depth, backend="kernel",
+                               split_mode="hist", num_bins=HIST_BINS)
+
+
+def capture_feat_hist_levels(args, ds):
+    """The arguments of every `feat_hist` call of one tree batch of fit
+    (b), level by level: the fit runs through `RandomForest.fit` with a
+    recorder around the port's `ops.feature_tables` adapter, which keeps
+    each level's inputs as the kernel's wrapper receives them."""
+    import torch
+    from repro_torch.core.forest import RandomForest
+    from repro_torch.kernels import ops as kops
+    levels = []
+    adapter = kops.feature_tables
+
+    def record(bin_of, slots, w, labels, *, B, W, task, num_classes):
+        levels.append(dict(
+            x=bin_of.contiguous(), slot=slots.to(torch.int32).clone(),
+            w=w.contiguous(), y=labels.to(torch.float32).contiguous(), W=W,
+            B=B, task=task, S=kops.stat_dim(num_classes, task)))
+        return adapter(bin_of, slots, w, labels, B=B, W=W, task=task,
+                       num_classes=num_classes)
+
+    kops.feature_tables = record
+    try:
+        RandomForest(hist_params(args), num_trees=TREE_BATCH, seed=args.seed,
+                     tree_batch=TREE_BATCH).fit(ds)
+    finally:
+        kops.feature_tables = adapter
+    return levels
+
+
+def feat_hist_main_shapes(args, dev, ds):
+    """feat_hist at the shapes and on the data that fit (b) gives it:
+    each level's real bin cache (uint8, B = 255), bag weights and scatter
+    slots (raw leaf ids at the root, packed build slots under subtraction
+    below it), captured from one tree batch of that fit.  The kernel is
+    timed at every level; at the root and at the deepest level it is also
+    held against its plain version and timed beside it, the library call
+    and the bound.  The deepest level's numbers go into the kernels line."""
+    import torch
+    levels = capture_feat_hist_levels(args, ds)
+    rows = []
+    for depth, lv in enumerate(levels):
+        ins = (lv["x"], lv["slot"], lv["w"], lv["y"])
+        T, n = lv["slot"].shape
+        m = lv["x"].shape[0]
+        if depth in (0, len(levels) - 1):
+            r = check_feat_hist(args, dev, None, n, T, m, lv["W"], lv["B"],
+                                lv["x"].dtype, lv["task"], True, inputs=ins)
+        else:
+            from repro_torch.kernels import feat_hist as fh
+            kw = dict(W=lv["W"], B=lv["B"], num_stats=lv["S"],
+                      task=lv["task"])
+            r = dict(ms=cuda_ms(lambda: fh.feat_hist(*ins, **kw)))
+        r.update(depth=depth, W=lv["W"], rows_in_slots=int(
+            ((lv["slot"] > 0) & (lv["w"] > 0)).sum().item()))
+        log(f"  feat_hist fit (b) level {json.dumps(r)}")
+        rows.append(r)
+    deepest = rows[-1]
+    total = sum(r["ms"] for r in rows)
+    log(f"  feat_hist over the {len(rows)} levels of one tree batch of fit "
+        f"(b): {total:.3f} ms (root {rows[0]['ms']:.3f} ms, deepest "
+        f"{deepest['ms']:.3f} ms)")
+    del levels
+    torch.cuda.empty_cache()
+    return dict(shape=dict(n=ds.n, T=TREE_BATCH, m=ds.m_num, W=deepest["W"],
+                           B=HIST_BINS, S=2, bins="uint8",
+                           depth=deepest["depth"]),
+                root=dict(W=rows[0]["W"], ms=rows[0]["ms"],
+                          plain_ms=rows[0]["plain_ms"],
+                          library_ms=rows[0]["library_ms"],
+                          bound_ms=rows[0]["bound_ms"]),
+                levels_ms=total,
+                **{k: deepest[k] for k in ("max_abs_err", "ms", "plain_ms",
+                                           "bound_ms", "bound_by",
+                                           "library_ms")})
 
 
 def phase2_main_shapes(args, dev, ds):
@@ -345,52 +599,103 @@ def same_trees(a, b) -> bool:
         for x, y in zip(a, b) for k in keys)
 
 
-def phase3(args, dev, ds):
+def run_fit(args, ds, params, kernels, label, levels_of=None):
+    """Fit `TREES` trees through `RandomForest.fit` with the launch
+    counters of `kernels` (name -> module) set to 0 just before and read
+    just after; every one of them must have launched.  Peak device memory
+    must stay under 60 GiB, and a repeat fit (profiled with --profile)
+    must grow identical trees."""
     import torch
-    from repro_torch.core import tree as tree_lib
     from repro_torch.core.forest import RandomForest
-    from repro_torch.kernels import cat_hist, split_scan
-    params = tree_lib.TreeParams(max_depth=args.depth, backend="kernel")
 
     def fit():
         return RandomForest(params, num_trees=TREES, seed=args.seed,
                             tree_batch=TREE_BATCH).fit(ds, collect_stats=True)
 
+    torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
-    split_scan.launches = 0
-    cat_hist.launches = 0
+    for mod in kernels.values():
+        mod.launches = 0
     t0 = time.perf_counter()
     rf = fit()
     torch.cuda.synchronize()
     fit_s = time.perf_counter() - t0
-    launches = {"split_scan": split_scan.launches,
-                "cat_hist": cat_hist.launches}
-    levels = [(s.depth, s.wall_seconds) for t in range(0, TREES, TREE_BATCH)
+    launches = {name: mod.launches for name, mod in kernels.items()}
+    levels = [(s.depth, s.open_leaves, s.wall_seconds, s.hist_table_bytes)
+              for t in range(0, TREES, TREE_BATCH)
               for s in rf.level_stats[t]]
     peak = torch.cuda.max_memory_allocated()
-    log(f"  fit: {fit_s:.3f} s for {TREES} trees of depth <= "
-        f"{args.depth} on n={ds.n} rows x {ds.m} columns "
+    log(f"  {label} fit: {fit_s:.3f} s for {TREES} trees of depth <= "
+        f"{params.max_depth} on n={ds.n} rows x {ds.m} columns "
         f"(tree_batch={TREE_BATCH})")
-    for depth, sec in levels:
-        log(f"    level depth={depth}: {sec * 1e3:.3f} ms")
+    for depth, open_leaves, sec, tbytes in levels:
+        extra = f", table bytes {tbytes}" if tbytes else ""
+        log(f"    level depth={depth} open={open_leaves}: "
+            f"{sec * 1e3:.3f} ms{extra}")
     log(f"  peak device memory: {peak / 2**30:.3f} GiB")
-    log(f"  launches on the main path: {json.dumps(launches)}")
+    log(f"  launches: {json.dumps(launches)}")
     log(f"  nodes per tree: {[t.num_nodes for t in rf.trees]}")
     if min(launches.values()) <= 0:
-        fail(f"a kernel of the main path never launched: {launches}")
+        fail(f"{label}: a kernel of the path never launched: {launches}")
     if peak > 60 * 2**30:
-        fail(f"peak device memory {peak / 2**30:.1f} GiB passes 60 GiB")
+        fail(f"{label}: peak device memory {peak / 2**30:.1f} GiB passes "
+             f"60 GiB")
     t0 = time.perf_counter()
     if args.profile:
         again = profiled(fit, fit_s)
     else:
         again = fit()
-    log(f"  repeat fit: {time.perf_counter() - t0:.3f} s")
+    log(f"  repeat {label} fit: {time.perf_counter() - t0:.3f} s")
     if not same_trees(rf.trees, again.trees):
-        fail("a repeat fit grew different trees")
-    log("  repeat fit grew identical trees")
+        fail(f"a repeat {label} fit grew different trees")
+    log(f"  repeat {label} fit grew identical trees")
     return rf, dict(fit_s=fit_s, levels=levels, peak_bytes=peak,
                     launches=launches)
+
+
+def phase3(args, dev, ds):
+    from repro_torch.core import tree as tree_lib
+    from repro_torch.kernels import cat_hist, split_scan
+    params = tree_lib.TreeParams(max_depth=args.depth, backend="kernel")
+    return run_fit(args, ds, params, {"split_scan": split_scan,
+                                      "cat_hist": cat_hist}, "exact")
+
+
+def phase5(args, dev, leo_train, leo_test, maj_train, maj_test):
+    """Hist mode on the card, with subtraction: (a) the Leo-shaped rows,
+    (b) the majority family.  An exact fit of the majority rows, once,
+    is the point of comparison for (b)."""
+    from repro_torch.core import tree as tree_lib
+    from repro_torch.kernels import cat_hist, feat_hist, split_scan
+    params = hist_params(args)
+    rf_a, info_a = run_fit(args, leo_train, params,
+                           {"feat_hist": feat_hist, "cat_hist": cat_hist},
+                           "hist (a) Leo")
+    info_a["auc"] = rf_a.auc(leo_test)
+    log(f"  hist (a) held-out AUC {info_a['auc']:.6f}")
+    if not info_a["auc"] > 0.6:
+        fail(f"hist (a) AUC {info_a['auc']} is no better than chance")
+    del rf_a
+    rf_b, info_b = run_fit(args, maj_train, params, {"feat_hist": feat_hist},
+                           "hist (b) majority")
+    info_b["auc"] = rf_b.auc(maj_test)
+    log(f"  hist (b) held-out AUC {info_b['auc']:.6f}")
+    if not info_b["auc"] > 0.6:
+        fail(f"hist (b) AUC {info_b['auc']} is no better than chance")
+    del rf_b
+    import torch
+    from repro_torch.core.forest import RandomForest
+    exact = tree_lib.TreeParams(max_depth=args.depth, backend="kernel")
+    split_scan.launches = 0
+    t0 = time.perf_counter()
+    rf_e = RandomForest(exact, num_trees=TREES, seed=args.seed,
+                        tree_batch=TREE_BATCH).fit(maj_train)
+    torch.cuda.synchronize()
+    log(f"  exact fit of the majority rows, for comparison: "
+        f"{time.perf_counter() - t0:.3f} s, held-out AUC "
+        f"{rf_e.auc(maj_test):.6f}, split_scan launches "
+        f"{split_scan.launches}")
+    return info_a, info_b
 
 
 def profiled(fn, unprofiled_s: float):
@@ -471,22 +776,70 @@ def phase4(args, dev, rf, test):
         fail("save/load round trip changed the predictions")
     log("  save/load round trip: identical predictions")
 
-    # the card's fit equals the CPU's plain-version fit on a small input
+    # small fits on the card equal the CPU's plain-version fits
     rng = np.random.default_rng(args.seed)
     n = 20_000
     num = rng.normal(size=(n, 3)).astype(np.float32)
     cat = np.stack([rng.integers(0, a, n) for a in (5, 40, 300)], 1)
     y = ((num[:, 0] > 0) ^ (cat[:, 1] % 3 == 0)).astype(np.int32)
     small = from_numpy(num, cat, y)
-    params = tree_lib.TreeParams(max_depth=6, backend="kernel")
-    gpu = RandomForest(params, num_trees=3, seed=args.seed,
-                       tree_batch=3).fit(small)
-    cpu = RandomForest(params, num_trees=3, seed=args.seed, tree_batch=3,
-                       device="cpu").fit(small)
-    if not same_trees(gpu.trees, cpu.trees):
-        fail("the card's small fit differs from the CPU's")
-    log("  small fit: the card's trees equal the CPU plain version's")
+    reg = from_numpy(num, cat, (3 * num[:, 0] + (cat[:, 1] % 4)
+                                + 0.05 * rng.normal(size=n)).astype(
+                                    np.float32), task="regression")
+    regression = dict(task="regression", impurity="variance",
+                      min_records=5)
+    cases = [("exact", small, dict()),
+             ("hist with subtraction", small,
+              dict(split_mode="hist", num_bins=HIST_BINS)),
+             ("exact regression", reg, dict(regression, max_depth=4)),
+             ("hist regression", reg,
+              dict(regression, split_mode="hist", num_bins=HIST_BINS))]
+    for name, data, kw in cases:
+        params = tree_lib.TreeParams(**dict(dict(max_depth=6,
+                                                 backend="kernel"), **kw))
+        gpu = RandomForest(params, num_trees=3, seed=args.seed,
+                           tree_batch=3).fit(data)
+        cpu = RandomForest(params, num_trees=3, seed=args.seed, tree_batch=3,
+                           device="cpu").fit(data)
+        if data.task == "classification":
+            if not same_trees(gpu.trees, cpu.trees):
+                fail(f"the card's small {name} fit differs from the CPU's")
+            log(f"  small {name} fit: the card's trees equal the CPU "
+                f"plain version's")
+            continue
+        # regression sums floats in other orders on the card: the same
+        # structure, node values and thresholds within rtol 1e-5
+        err = same_structure(gpu.trees, cpu.trees)
+        if err is None or err > 1e-5:
+            fail(f"the card's small {name} fit differs from the CPU's "
+                 f"(relative value/threshold error {err})")
+        again = RandomForest(params, num_trees=3, seed=args.seed,
+                             tree_batch=3).fit(data)
+        if not same_trees(gpu.trees, again.trees):
+            fail(f"a repeat of the card's small {name} fit grew different "
+                 f"trees")
+        log(f"  small {name} fit: the card's trees have the CPU's "
+            f"structure (values within {err:.2e} relative); a repeat on "
+            f"the card is identical")
     return dict(auc=auc, predict_ms=pred_s * 1e3)
+
+
+def same_structure(a, b):
+    """None when the trees' structure differs, else the largest relative
+    difference of node values and thresholds."""
+    import numpy as np
+    keys = ("feature", "is_cat", "cat_mask", "children", "depth")
+    if len(a) != len(b) or not all(
+            np.array_equal(getattr(x, k), getattr(y, k))
+            for x, y in zip(a, b) for k in keys):
+        return None
+    err = 0.0
+    for x, y in zip(a, b):
+        for k in ("value", "threshold"):
+            u, v = getattr(x, k), getattr(y, k)
+            err = max(err, float((np.abs(u - v)
+                                  / np.maximum(np.abs(v), 1e-6)).max()))
+    return err
 
 
 def main() -> int:
@@ -536,6 +889,7 @@ def main() -> int:
 
     log("phase 2: kernels against their plain versions")
     phase2(args, dev)
+    deep_fit(args, dev)
     n_all = (1 << args.train_log2n) + TEST_ROWS
     t0 = time.perf_counter()
     num, cat, y, arities = leo_dataset(args.seed, n_all)
@@ -544,10 +898,18 @@ def main() -> int:
     train = from_numpy(num[:cut], cat[:cut], y[:cut], arities)
     test = from_numpy(num[cut:], cat[cut:], y[cut:], arities)
     del num, cat, y
+    maj = majority_dataset(args.seed, n_all)
+    maj_train = from_numpy(maj.num[:cut], None, maj.labels[:cut])
+    maj_test = from_numpy(maj.num[cut:], None, maj.labels[cut:])
+    del maj
     log(f"  Leo-shaped data: {train.n} train + {test.n} test rows, "
-        f"{train.m_num} numeric + {train.m_cat} categorical columns, "
-        f"made in {time.perf_counter() - t0:.2f} s")
+        f"{train.m_num} numeric + {train.m_cat} categorical columns; "
+        f"majority data: {maj_train.n} + {maj_test.n} rows, "
+        f"{maj_train.m_num} numeric columns; made in "
+        f"{time.perf_counter() - t0:.2f} s")
     main_rows = phase2_main_shapes(args, dev, train)
+    main_rows["feat_hist"] = feat_hist_main_shapes(args, dev, maj_train)
+    log(f"  feat_hist main-path shapes {json.dumps(main_rows['feat_hist'])}")
     if args.skip_train:
         return 0
 
@@ -556,17 +918,24 @@ def main() -> int:
 
     log("phase 4: predict")
     phase4(args, dev, rf, test)
+    del rf
+
+    log("phase 5: hist mode on the card")
+    _, hist_b = phase5(args, dev, train, test, maj_train, maj_test)
 
     kernels = []
     sources = {"split_scan": ("src/repro_torch/csrc/split_scan.cu",
-                              "src/repro/kernels/split_scan.py:164"),
+                              "src/repro/kernels/split_scan.py:164",
+                              fit_info),
                "cat_hist": ("src/repro_torch/csrc/cat_hist.cu",
-                            "src/repro/kernels/cat_hist.py:64")}
-    for name, (source, replaces) in sources.items():
+                            "src/repro/kernels/cat_hist.py:64", fit_info),
+               "feat_hist": ("src/repro_torch/csrc/feat_hist.cu",
+                             "src/repro/kernels/feat_hist.py:83", hist_b)}
+    for name, (source, replaces, run) in sources.items():
         r = main_rows[name]
         kernels.append(dict(
             name=name, route="cuda", source=source, replaces=replaces,
-            launches=fit_info["launches"][name],
+            launches=run["launches"][name],
             max_abs_err=r["max_abs_err"], ms=r["ms"], plain_ms=r["plain_ms"],
             bound_ms=r["bound_ms"], bound_by=r["bound_by"],
             library_ms=r["library_ms"]))

@@ -53,6 +53,28 @@ class TabularDataset:
         if self.task == "classification":
             assert np.issubdtype(self.labels.dtype, np.integer)
 
+    def quantize(self, num_bins: int) -> tuple[np.ndarray, np.ndarray]:
+        """PLANET-style threshold buckets for `split_mode="hist"`.
+
+        Presorts on the CPU and buckets every numeric column into <=
+        num_bins equi-depth buckets.  Returns numpy (bin_of (m_num, n)
+        uint8 for <= 256 bins, uint16 past; edges (m_num, num_bins)
+        float32), both empty without numeric columns: pre-quantized state
+        for `tree.build_forest(bin_of=, bin_edges=)`.  The reference's
+        `TabularDataset.quantize` gives the same arrays.
+        """
+        import torch
+        from repro_torch.core import presort
+        if not self.m_num:
+            return (np.zeros((0, self.n),
+                             np.uint8 if num_bins <= 256 else np.uint16),
+                    np.zeros((0, num_bins), np.float32))
+        num = torch.as_tensor(self.num)
+        sorted_vals = presort.gather_sorted(num,
+                                            presort.presort_columns(num))
+        bin_of, edges = presort.quantize(num, sorted_vals, num_bins)
+        return bin_of.numpy(), edges.numpy()
+
 
 def from_numpy(
     num: np.ndarray | None,

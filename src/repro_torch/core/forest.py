@@ -229,8 +229,9 @@ class RandomForest:
 
     def fit(self, ds: TabularDataset, collect_stats: bool = False,
             engine=None, cat_engine=None) -> "RandomForest":
-        """Train the forest: presort once (§2.1), then one batched level
-        step per depth for each group of `tree_batch` trees."""
+        """Train the forest: presort once (§2.1) — and in hist mode quantize
+        once — then one batched level step per depth for each group of
+        `tree_batch` trees."""
         dev = resolve_device(self.device)
         ds.validate()
         self.num_classes = ds.num_classes
@@ -251,6 +252,12 @@ class RandomForest:
                   params=self.params, seed=self.seed,
                   collect_stats=collect_stats, engine=engine,
                   cat_engine=cat_engine)
+        if self.params.split_mode == "hist" and ds.m_num:
+            # hist mode: quantize once per forest (the PLANET-style fixed
+            # bucket budget), shared by every tree and level like the presort
+            bin_of, bin_edges = presort.quantize(num_cols.t(), sorted_vals,
+                                                 self.params.num_bins)
+            kw.update(bin_of=bin_of, bin_edges=bin_edges)
         tb = self._resolve_tree_batch(ds)
         self.trees, self.level_stats = [], []
         for lo in range(0, self.num_trees, tb):

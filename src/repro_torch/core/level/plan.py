@@ -7,6 +7,7 @@ tree in the batch:
 
     candidate draw → engine supersplits → cross-feature winner argmax →
     condition evaluation (step 5) → leaf reassignment (step 6) → next totals
+    (+ the carried histogram tables under hist-mode subtraction)
 
 The reference vmapped a per-tree core over the tree axis; here the tree
 axis T is written out in every tensor, and the next level's totals are
@@ -26,27 +27,46 @@ from typing import Optional
 import torch
 from torch.profiler import record_function
 
-from repro_torch.core import bagging
+from repro_torch.core import bagging, presort
 from repro_torch.core.level.engines import (CategoricalTable, ExactNumeric,
-                                            LevelInputs, LevelStatics,
-                                            SplitEngine)
+                                            HistNumeric, LevelInputs,
+                                            LevelStatics, SplitEngine)
+from repro_torch.kernels.cat_hist import power_of_two_scales
 
 def _pad_leaves(L: int, pad: int) -> int:
     """Pad to a power of two (at least `pad`)."""
     return max(pad, 1 << (L - 1).bit_length())
 
 
-def _leaf_totals(leaf_of, stats, w, Lp):
-    """Per-tree per-leaf in-bag stat totals (T, Lp+1, S), one flat scatter."""
+def _leaf_totals(leaf_of, stats, w, Lp, task="classification"):
+    """Per-tree per-leaf in-bag stat totals (T, Lp+1, S), one flat scatter.
+
+    Classification stats are integer counts, so float `index_add_` is exact
+    in any order.  Regression stats are floats, and CUDA's atomic order
+    changes their sums from run to run; they are summed in 64-bit fixed
+    point instead (one power-of-two scale per stat channel, as `cat_hist`
+    does), which is exact and associative, so the totals are the same bits
+    on every run and on every device.
+    """
     T, n = leaf_of.shape
     L1 = Lp + 1
+    S = stats.shape[-1]
     inb = (w > 0) & (leaf_of > 0)
-    flat = leaf_of.long() + torch.arange(T, device=leaf_of.device)[:, None] * L1
-    out = torch.zeros((T * L1, stats.shape[-1]), dtype=torch.float32,
-                      device=stats.device)
-    out.index_add_(0, flat.reshape(-1),
-                   torch.where(inb[..., None], stats, 0.0).reshape(T * n, -1))
-    return out.reshape(T, L1, -1)
+    flat = (leaf_of.long()
+            + torch.arange(T, device=leaf_of.device)[:, None] * L1
+            ).reshape(-1)
+    contrib = torch.where(inb[..., None], stats, 0.0).reshape(T * n, S)
+    if task == "classification":
+        out = torch.zeros((T * L1, S), dtype=torch.float32,
+                          device=stats.device)
+        out.index_add_(0, flat, contrib)
+        return out.reshape(T, L1, S)
+    scale = torch.tensor(power_of_two_scales(
+        contrib.abs().amax(0).tolist(), n), dtype=torch.float64,
+        device=stats.device)
+    acc = torch.zeros((T * L1, S), dtype=torch.int64, device=stats.device)
+    acc.index_add_(0, flat, torch.round(contrib.double() * scale).long())
+    return (acc.double() / scale).to(torch.float32).reshape(T, L1, S)
 
 
 @dataclasses.dataclass(frozen=True)
@@ -63,13 +83,37 @@ class LevelPlan:
     impurity: str
     task: str
     min_records: float
+    num_bins: int = 255
+    hist_subtract: bool = True
 
     @property
     def statics(self) -> LevelStatics:
         return LevelStatics(
             m_num=self.m_num, m_cat=self.m_cat, max_arity=self.max_arity,
             num_classes=self.num_classes, impurity=self.impurity,
-            task=self.task, min_records=self.min_records)
+            task=self.task, min_records=self.min_records,
+            num_bins=self.num_bins)
+
+    @property
+    def use_bin_cuts(self) -> bool:
+        """The numeric engine reports BIN INDICES, not float thresholds:
+        conditions are evaluated on the bit-packed bin cache and the host
+        decodes thresholds from the float edges, which never reach the
+        level step."""
+        return bool(self.m_num) and self.numeric is not None \
+            and self.numeric.bin_cut_thresholds
+
+    @property
+    def carries_tables(self) -> bool:
+        """Histogram subtraction is on: the level loop carries each
+        level's per-leaf tables and every level builds only the smaller
+        child of each split, deriving its sibling as parent − sibling.
+        Classification only: its table entries are integer-valued bag
+        counts, so the subtraction is exact (bit-equal to a plain
+        rebuild); regression tables hold float sums, so regression always
+        rebuilds."""
+        return self.use_bin_cuts and self.numeric.carries_tables \
+            and self.hist_subtract and self.task == "classification"
 
 
 def make_plan(params, *, m_num: int, m_cat: int, max_arity: int,
@@ -78,19 +122,26 @@ def make_plan(params, *, m_num: int, m_cat: int, max_arity: int,
               cat_engine: Optional[SplitEngine] = None) -> LevelPlan:
     """Resolve a LevelPlan from TreeParams + optional engine overrides.
 
-    Raises NotImplementedError, naming the ROADMAP item, for what this
-    slice of the port does not carry: hist mode and the numeric
-    `segment` backend.
+    Defaults: the engine for `params.split_mode` on `params.backend`, and
+    the categorical tables.  A numeric `engine` must match the split mode
+    (a hist engine scores bucket boundaries, an exact engine needs the
+    presort).  Raises NotImplementedError, naming the ROADMAP item, for
+    the exact numeric `segment` backend, which the port does not carry.
     """
-    if params.split_mode != "exact":
-        raise NotImplementedError(
-            f"split_mode={params.split_mode!r} is not ported (ROADMAP: hist "
-            f"mode and the feat_hist kernel)")
+    hist = params.split_mode == "hist"
     if engine is None:
-        engine = ExactNumeric(params.backend)
+        engine = (HistNumeric(params.backend) if hist
+                  else ExactNumeric(params.backend))
     elif engine.kind != "numeric":
         raise ValueError(f"numeric engine expected, got {engine!r}")
-    if m_num and getattr(engine, "backend", None) == "segment":
+    elif hist and not engine.needs_bins:
+        raise ValueError(
+            f"split_mode='hist' needs a histogram engine, got {engine!r}")
+    elif not hist and engine.needs_bins:
+        raise ValueError(
+            f"split_mode='exact' cannot use histogram engine {engine!r}")
+    if m_num and isinstance(engine, ExactNumeric) \
+            and engine.backend == "segment":
         raise NotImplementedError(
             "the numeric 'segment' backend is not ported (ROADMAP: numeric "
             "segment backend); use backend='kernel' or 'scan'")
@@ -104,7 +155,8 @@ def make_plan(params, *, m_num: int, m_cat: int, max_arity: int,
         m_num=m_num, m_cat=m_cat, max_arity=max_arity,
         num_classes=num_classes, m_prime=m_prime, usb=params.usb,
         impurity=params.impurity, task=params.task,
-        min_records=params.min_records)
+        min_records=params.min_records, num_bins=params.num_bins,
+        hist_subtract=params.hist_subtract)
 
 
 def _candidates(fkeys, depth, splittable_p, Lp, plan):
@@ -120,22 +172,34 @@ def _candidates(fkeys, depth, splittable_p, Lp, plan):
 
 
 def _eval_conditions_core(num_cols, cat_cols, leaf_of, feat_of_leaf,
-                          thr_of_leaf, iscat_of_leaf, mask_of_leaf, m_num):
+                          thr_of_leaf, iscat_of_leaf, mask_of_leaf, m_num,
+                          bin_of=None):
     """Alg. 2 step 5: the winning condition of each row's leaf.
 
     leaf_of (T, n); the per-leaf decisions are (T, L+1) (mask (T, L+1, V)).
+    With `bin_of` (hist mode, `plan.use_bin_cuts`) the numeric condition
+    is evaluated on the bin cache: `thr_of_leaf` then holds the winning
+    BIN INDEX, and `bin <= cut` picks the rows `x <= edges[cut]` does.
     Returns bits (T, n) bool — True = LEFT.
     """
     T, n = leaf_of.shape
     lf = leaf_of.long()
     rows = torch.arange(n, device=leaf_of.device)[None, :]
     f = torch.gather(feat_of_leaf, 1, lf).long()
-    if m_num:
+    thr = torch.gather(thr_of_leaf, 1, lf)
+    if m_num and bin_of is not None:
         jn = f.clamp(0, m_num - 1)
-        xnum = num_cols.reshape(-1)[jn * n + rows]
+        bins = bin_of.view(torch.int16) if bin_of.dtype == torch.uint16 \
+            else bin_of                 # gather the bits, widen after
+        xbin = presort.bin_ids(bins.reshape(-1)[jn * n + rows].view(
+            bin_of.dtype))
+        num_bit = xbin <= thr.to(torch.int32)
+    elif m_num:
+        jn = f.clamp(0, m_num - 1)
+        num_bit = num_cols.reshape(-1)[jn * n + rows] <= thr
     else:
-        xnum = torch.zeros((T, n), dtype=torch.float32, device=lf.device)
-    num_bit = xnum <= torch.gather(thr_of_leaf, 1, lf)
+        num_bit = torch.zeros((T, n), dtype=torch.float32,
+                              device=lf.device) <= thr
     m_cat = cat_cols.shape[0]
     if not m_cat:
         return num_bit
@@ -147,30 +211,34 @@ def _eval_conditions_core(num_cols, cat_cols, leaf_of, feat_of_leaf,
 
 
 def _level_step_core(inp: LevelInputs, splittable_p, fkeys, depth, *,
-                     plan: LevelPlan, Lp: int):
+                     plan: LevelPlan, Lp: int, subtract: bool = False):
     """One whole depth level of Alg. 2 for the tree batch.
 
     Candidate feature draw, numeric + categorical engine supersplits,
     cross-feature argmax, condition evaluation and leaf reassignment.
-    Returns (struct of per-leaf (T, L+1) decisions, new leaf_of (T, n)).
+    `subtract` says the inputs carry a valid previous level of histogram
+    tables (not at the root).  Returns (struct of per-leaf (T, L+1)
+    decisions, new leaf_of (T, n), the level's carried tables or None).
     """
     m_num, m_cat = plan.m_num, plan.m_cat
     T = inp.leaf_of.shape[0]
     L1 = Lp + 1
     dev = inp.leaf_of.device
-    st = plan.statics
+    st = plan.statics._replace(subtract=subtract)
 
     # Alg. 2 step 3: seeded per-leaf candidate features (paper §2.2/§2.4)
     with record_function("level.candidates"):
         cand = _candidates(fkeys, depth, splittable_p, Lp, plan)  # (T, m, L1)
 
-    gains_parts, masks = [], None
+    gains_parts, masks, tables = [], None, None
     thr_num = torch.zeros((T, max(m_num, 1), L1), dtype=torch.float32,
                           device=dev)
     if m_num:
         with record_function("level.numeric"):
-            g, thr_num = plan.numeric.supersplits(inp, st, Lp,
-                                                  cand[:, :m_num])
+            g, thr_num, tables = plan.numeric.supersplits(
+                inp, st, Lp, cand[:, :m_num])
+        if not plan.carries_tables:
+            tables = None           # the next level rebuilds its own
         gains_parts.append(g)
     if m_cat:
         with record_function("level.categorical"):
@@ -180,7 +248,7 @@ def _level_step_core(inp: LevelInputs, splittable_p, fkeys, depth, *,
     with record_function("level.reassign"):
         struct, new_leaf_of = _merge_and_reassign(
             inp, plan, splittable_p, gains_parts, thr_num, masks, Lp)
-    return struct, new_leaf_of
+    return struct, new_leaf_of, tables
 
 
 def _merge_and_reassign(inp, plan, splittable_p, gains_parts, thr_num, masks,
@@ -223,7 +291,9 @@ def _merge_and_reassign(inp, plan, splittable_p, gains_parts, thr_num, masks,
     # Alg. 2 steps 5-6: 1-bit condition per row, reassign to the children
     bits = _eval_conditions_core(inp.num_cols, inp.cat_cols, inp.leaf_of,
                                  feat_of_leaf, thr_of_leaf, iscat_of_leaf,
-                                 mask_of_leaf, m_num)
+                                 mask_of_leaf, m_num,
+                                 bin_of=inp.bin_of if plan.use_bin_cuts
+                                 else None)
     lf = inp.leaf_of.long()
     new_leaf_of = torch.where(
         inp.leaf_of > 0,
@@ -236,7 +306,8 @@ def _merge_and_reassign(inp, plan, splittable_p, gains_parts, thr_num, masks,
 
 
 def _fused_level_step_batched(inp: LevelInputs, splittable_p, fkeys, depth,
-                              *, plan: LevelPlan, Lp: int):
+                              *, plan: LevelPlan, Lp: int,
+                              subtract: bool = False):
     """One depth level of EVERY tree in the batch.
 
     `Lp` is the batch-wide padded frontier width; trees with fewer open
@@ -244,11 +315,23 @@ def _fused_level_step_batched(inp: LevelInputs, splittable_p, fkeys, depth,
     `splittable_p`, which empties their candidate sets so no leaf splits.
     Because the candidate draw is padding-independent, every tree equals
     its own one-tree build.  Returns (struct, new leaf_of (T, n), next
-    totals (T, 2·Lp+1, S)).
+    totals (T, 2·Lp+1, S), the level's tables (T, m_num, Lp+1, B, S) when
+    the plan carries them, else None).  A carrying plan also puts the
+    next level's per-child row counts (`key_counts`, (T, 2·Lp+1) int64,
+    closed rows included) into the struct: the host picks each split's
+    smaller child as the next build leaf from them.
     """
-    struct, new_leaf_of = _level_step_core(inp, splittable_p, fkeys, depth,
-                                           plan=plan, Lp=Lp)
+    struct, new_leaf_of, tables = _level_step_core(
+        inp, splittable_p, fkeys, depth, plan=plan, Lp=Lp, subtract=subtract)
     # next-level totals on the flat (tree, segment) index space
     with record_function("level.next_totals"):
-        next_totals = _leaf_totals(new_leaf_of, inp.stats, inp.w, 2 * Lp)
-    return struct, new_leaf_of, next_totals
+        next_totals = _leaf_totals(new_leaf_of, inp.stats, inp.w, 2 * Lp,
+                                   plan.task)
+        if plan.carries_tables:
+            T = new_leaf_of.shape[0]
+            L2 = 2 * Lp + 1
+            flat = (new_leaf_of.long() + torch.arange(
+                T, device=new_leaf_of.device)[:, None] * L2).reshape(-1)
+            struct["key_counts"] = torch.bincount(
+                flat, minlength=T * L2).reshape(T, L2)
+    return struct, new_leaf_of, next_totals, tables

@@ -25,6 +25,8 @@ from typing import Callable
 
 import torch
 
+from repro_torch.core import presort
+
 NEG = float("-inf")
 
 
@@ -185,6 +187,66 @@ def best_numeric_split_scan(
         totals.index_add_(0, leaf_sorted.long(), contrib)
     return scan_supersplit(vals_sorted, leaf_sorted, w_sorted, stats_sorted,
                            cand_leaf, totals, impurity, task, min_records)
+
+
+# ---------------------------------------------------------------------------
+# Numerical — PLANET-style histogram (approximate) mode
+# ---------------------------------------------------------------------------
+
+def best_numeric_split_histogram(table, cand_leaf, impurity="gini",
+                                 task="classification", min_records=1.0):
+    """Approximate supersplit: score only the B−1 bucket boundaries.
+
+    table (..., L+1, B, S) per-leaf (bin × stat) tables of a column
+    quantized once (`presort.quantize`); cand_leaf (..., L+1) bool.
+    Buckets are already value-sorted, so the prefix cuts are scored in
+    bucket order, with no reordering (the one difference from
+    `best_categorical_split_from_table`); the first best cut wins.
+    Returns (best_gain (..., L+1), best_cut (..., L+1) float32): the cut
+    is the winning BIN INDEX b (bins <= b go left), which the host decodes
+    as `edges[col, b]` when it records the node.  Empty buckets give
+    zero-gain duplicate cuts and never win over a populated boundary.
+    """
+    cnt = count_fn(task)
+    totals = table.sum(-2)                                  # (..., L+1, S)
+    prefix = table.cumsum(-2)                               # cut after bin b
+    left = prefix[..., :-1, :]                              # cuts 0..B-2
+    right = totals[..., None, :] - left
+    ok = (cnt(left) >= min_records) & (cnt(right) >= min_records) \
+        & cand_leaf[..., None]
+    gains = torch.where(ok, split_gain(left, right, impurity), NEG)
+    best_cut = gains.argmax(-1)                             # first max
+    best_gain = torch.gather(gains, -1, best_cut[..., None])[..., 0]
+    best_cut = torch.where(torch.isfinite(best_gain), best_cut, 0)
+    return best_gain, best_cut.to(torch.float32)
+
+
+def feature_count_tables(bin_of, slots, w, stats, num_slots, num_bins):
+    """Per-slot bin tables of ALL m columns for T trees in ONE scatter
+    over the flat (tree, feature, slot, bin) index space.
+
+    bin_of (m, n) packed bucket ids; slots/w (T, n); stats (T, n, S) ->
+    (T, m, num_slots+1, B, S).  `slots` are scatter slots, 0 = discard:
+    raw leaf ids on the plain path, packed build slots under histogram
+    subtraction (derive-leaf rows mapped to 0).  The plain version of the
+    `feat_hist` kernel, and the reference's jnp twin of its Pallas kernel
+    with the tree axis written out.
+    """
+    T, n = slots.shape
+    m = bin_of.shape[0]
+    S = stats.shape[-1]
+    W = num_slots + 1
+    dev = bin_of.device
+    inbag = (w > 0) & (slots > 0)
+    contrib = torch.where(inbag[..., None], stats, 0.0)        # (T, n, S)
+    base = (torch.arange(T * m, device=dev).reshape(T, m, 1) * W
+            + slots.long()[:, None, :]) * num_bins            # (T, m, n)
+    flat = (base + presort.bin_ids(bin_of).long()[None]).reshape(-1)
+    table = torch.zeros((T * m * W * num_bins, S), dtype=torch.float32,
+                        device=dev)
+    table.index_add_(0, flat,
+                     contrib[:, None].expand(T, m, n, S).reshape(-1, S))
+    return table.reshape(T, m, W, num_bins, S)
 
 
 # ---------------------------------------------------------------------------

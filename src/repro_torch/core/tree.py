@@ -1,5 +1,5 @@
 """Level-by-level decision tree builders (paper Alg. 2) + flat tree arrays,
-ported from `repro.core.tree` (exact mode, in memory).
+ported from `repro.core.tree` (exact and hist mode, in memory).
 
 The tree builder is the control plane (host Python, like the paper's tree
 builder workers, which never touch the dataset); the per-level supersplit
@@ -23,7 +23,7 @@ import numpy as np
 import torch
 from torch.profiler import record_function
 
-from repro_torch.core import bagging, class_list, prng, splits
+from repro_torch.core import bagging, class_list, presort, prng, splits
 from repro_torch.core.level.engines import LevelInputs, SplitEngine
 from repro_torch.core.level.plan import (_fused_level_step_batched,
                                          _leaf_totals, _pad_leaves, make_plan)
@@ -35,10 +35,14 @@ from repro_torch.core.level.plan import (_fused_level_step_batched,
 
 @dataclasses.dataclass(frozen=True)
 class TreeParams:
-    """The reference's fields and defaults.  This slice of the port
-    trains `split_mode="exact"` with `backend="kernel"` or `"scan"` (or
-    `"segment"` when there are no numeric columns); the rest raises
-    NotImplementedError naming its ROADMAP item."""
+    """The reference's fields and defaults.  The port trains
+    `split_mode="exact"` with `backend="kernel"` or `"scan"` (or
+    `"segment"` when there are no numeric columns), and
+    `split_mode="hist"` with any backend, with or without `hist_subtract`.
+    Bin and category tables always come from the `feat_hist` and
+    `cat_hist` kernels (their plain versions on the CPU), whatever the
+    backend.  The rest raises NotImplementedError naming its ROADMAP
+    item."""
     max_depth: int = 20
     min_records: float = 1.0        # paper: "minimum number of records in a leaf"
     num_candidates: Optional[int] = None  # m' (None = ceil(sqrt(m)))
@@ -98,6 +102,10 @@ class LevelStats:
     feature_passes: int          # sequential passes over candidate columns
     rows_scanned: int
     wall_seconds: float          # the batched level step, host fetch included
+    # hist mode: bytes of the level's table payload, m_num·width·B·S f32;
+    # under subtraction only the packed build slots (width Lp//2+1 instead
+    # of Lp+1) are built
+    hist_table_bytes: int = 0
 
 
 # ---------------------------------------------------------------------------
@@ -145,12 +153,15 @@ class _NodeAccum:
 
 
 def _grow_level(acc: _NodeAccum, open_nodes: list, host: dict, L: int,
-                m_num: int, depth: int) -> tuple[list, bool]:
+                m_num: int, depth: int, edges_np=None) -> tuple[list, bool]:
     """Alg. 2 step 8 for ONE tree: grow the flat tree from a level struct.
 
     `host` holds the fetched per-leaf arrays of one tree (best_feat /
     best_gain / thr / mask / will_split, each (Lp+1,)-indexed by leaf id).
-    Returns (next level's open node ids, whether any leaf split).
+    `edges_np` ((m_num, B) numpy) is hist mode's threshold decode table:
+    the level step reports the winning BIN INDEX, and the node records
+    `edges[col, cut]`.  Returns (next level's open node ids, whether any
+    leaf split).
     """
     bf, bg = host["best_feat"], host["best_gain"]
     thr, mask, ws = host["thr"], host["mask"], host["will_split"]
@@ -165,7 +176,8 @@ def _grow_level(acc: _NodeAccum, open_nodes: list, host: dict, L: int,
         acc.feature[node] = j
         acc.gain[node] = float(bg[h])
         if j < m_num:
-            acc.threshold[node] = float(thr[h])
+            acc.threshold[node] = float(
+                thr[h] if edges_np is None else edges_np[j, int(thr[h])])
         else:
             acc.is_cat[node] = True
             acc.cat_mask[node] = mask[h].copy()
@@ -173,6 +185,32 @@ def _grow_level(acc: _NodeAccum, open_nodes: list, host: dict, L: int,
         acc.children[node] = [lc, rc]
         next_open.extend([lc, rc])
     return next_open, any_split
+
+
+def _child_maps(ws, kc, L, Lp_next):
+    """The next level's subtraction maps from this level's split bitmap.
+
+    ws (Lp+1,) bool: which leaves split; kc (2·Lp+1,) int: row counts of
+    the new child leaves (the level struct's key_counts).  Returns
+    (parent_of, sib_of, slot_of), each (Lp_next+1,) int32 indexed by the
+    NEW leaf ids: parent and sibling per child, and the packed build slot
+    — given to the SMALLER child of each split (ties: left), 0 for the
+    derive sibling.  Build slots stay <= Lp_next // 2, the packed table
+    width the engines scatter into.
+    """
+    parent = np.zeros(Lp_next + 1, np.int32)
+    sib = np.zeros(Lp_next + 1, np.int32)
+    slot = np.zeros(Lp_next + 1, np.int32)
+    k = 0
+    for h in range(1, L + 1):
+        if not ws[h]:
+            continue
+        k += 1
+        lc, rc = 2 * k - 1, 2 * k
+        parent[lc] = parent[rc] = h
+        sib[lc], sib[rc] = rc, lc
+        slot[lc if kc[lc] <= kc[rc] else rc] = k
+    return parent, sib, slot
 
 
 def _assemble_tree(acc: _NodeAccum, max_arity, m_num, task) -> Tree:
@@ -203,6 +241,56 @@ def _num_candidates(params, m: int) -> int:
         1, math.isqrt(m) + (0 if math.isqrt(m) ** 2 == m else 1))
 
 
+def _check_params(params) -> None:
+    if params.split_mode not in ("exact", "hist"):
+        raise ValueError(f"unknown split_mode {params.split_mode!r} "
+                         "(expected 'exact' or 'hist')")
+    if params.split_mode == "hist" and params.num_bins < 2:
+        raise ValueError("hist mode needs num_bins >= 2")
+
+
+def _hist_state(num, sorted_vals, params, m_num, bin_of, bin_edges, dev):
+    """The hist-mode bucket state on `dev` (None in exact mode).
+
+    Without pre-quantized state, quantize here from the presort, once per
+    tree batch.  Pre-quantized state (numpy or tensors, e.g. the output of
+    `TabularDataset.quantize`) is validated against `params`: a bin-count
+    or shape disagreement raises.
+    """
+    if params.split_mode != "hist" or not m_num:
+        return None, None
+    if bin_of is None:
+        return presort.quantize(num, sorted_vals, params.num_bins)
+    if bin_edges is None:
+        raise ValueError("pre-quantized bin_of needs its bin_edges")
+    if tuple(bin_edges.shape) != (m_num, params.num_bins):
+        raise ValueError(
+            f"pre-quantized bucket state disagrees with TreeParams: "
+            f"bin_edges shape {tuple(bin_edges.shape)} but the fit has "
+            f"m_num={m_num} numeric columns and num_bins="
+            f"{params.num_bins} — re-quantize the dataset (e.g. "
+            f"TabularDataset.quantize(num_bins={params.num_bins})) or "
+            f"set TreeParams(num_bins={bin_edges.shape[-1]})")
+    if tuple(bin_of.shape)[0] != m_num or bin_of.shape[-1] != num.shape[0]:
+        raise ValueError(
+            f"pre-quantized bin_of shape {tuple(bin_of.shape)} does not "
+            f"match the dataset ((m_num, n) = ({m_num}, {num.shape[0]}))")
+    dt = np.dtype(str(bin_of.dtype).removeprefix("torch."))
+    if dt not in (np.uint8, np.uint16):
+        raise ValueError(f"bin_of must be packed bucket ids (uint8 or "
+                         f"uint16, presort.bin_dtype), got {bin_of.dtype}")
+    if np.iinfo(dt).max < params.num_bins - 1:
+        raise ValueError(
+            f"bin_of dtype {bin_of.dtype} cannot hold num_bins="
+            f"{params.num_bins} bucket ids (expected "
+            f"{str(presort.bin_dtype(params.num_bins)).removeprefix('torch.')})")
+    if not isinstance(bin_of, torch.Tensor):
+        bin_of = torch.as_tensor(np.array(bin_of))     # own, writable
+    edges = (bin_edges if isinstance(bin_edges, torch.Tensor)
+             else torch.as_tensor(np.array(bin_edges, np.float32)))
+    return bin_of.to(dev).contiguous(), edges.to(dev, torch.float32)
+
+
 def build_forest(
     *,
     num: torch.Tensor, cat: torch.Tensor, labels: torch.Tensor,
@@ -212,6 +300,7 @@ def build_forest(
     collect_stats: bool = False,
     engine: Optional[SplitEngine] = None,
     cat_engine: Optional[SplitEngine] = None,
+    bin_of=None, bin_edges=None,
 ) -> tuple[list[Tree], list[list[LevelStats]]]:
     """Train a BATCH of trees, one batched level step per depth.
 
@@ -225,13 +314,21 @@ def build_forest(
       num_classes:   stat width C for classification; regression uses S = 3.
       params:        TreeParams.  seed/tree_indices: all randomness is a
                      pure function of (seed, tree index) (paper §2.2).
+      bin_of / bin_edges: hist mode's pre-quantized bucket state, (m_num, n)
+                     packed ids and (m_num, num_bins) float32 edges (numpy or
+                     tensors, e.g. `TabularDataset.quantize`); None quantizes
+                     from the presort.
     Per-tree bootstrap weights, PRNG keys and leaf frontiers are stacked on
     a leading tree axis; the frontier is padded to the batch maximum `Lp`
     and trees that finish early are masked through `splittable`.  Each
-    tree equals the one `build_tree(..., tree_idx=t)` grows.
+    tree equals the one `build_tree(..., tree_idx=t)` grows.  In hist mode
+    with subtraction (classification), each level's tables stay on the
+    device for the next level, which builds only the smaller child of
+    every split and derives its sibling as parent − sibling.
 
     Returns (trees, stats_logs), parallel lists over `tree_indices`.
     """
+    _check_params(params)
     if params.prune_closed_frac < 1.0:
         raise NotImplementedError(
             "Sprint pruning (prune_closed_frac < 1) is not ported (ROADMAP)")
@@ -245,13 +342,19 @@ def build_forest(
                      num_classes=num_classes, m_prime=m_prime, engine=engine,
                      cat_engine=cat_engine)
     task = params.task
+    hist = params.split_mode == "hist"
     dev = labels.device
     tidx = [int(t) for t in tree_indices]
     T = len(tidx)
     assert T >= 1
 
-    num_cols = num.t().contiguous() if m_num else torch.zeros(
-        (0, n), dtype=torch.float32, device=dev)
+    # the bucket state is tree-independent: shared read-only level input
+    bin_of, bin_edges = _hist_state(num, sorted_vals, params, m_num, bin_of,
+                                    bin_edges, dev)
+    edges_np = bin_edges.cpu().numpy() if plan.use_bin_cuts else None
+    carries = plan.carries_tables
+    num_cols = num.t().contiguous() if m_num and not plan.use_bin_cuts \
+        else torch.zeros((0, n), dtype=torch.float32, device=dev)
     cat_cols = cat.t().contiguous() if m_cat else torch.zeros(
         (0, n), dtype=torch.int32, device=dev)
     sorted_idx = sorted_idx.to(torch.int32).contiguous()
@@ -260,6 +363,7 @@ def build_forest(
     with record_function("fit.bagging"):
         w = bagging.bag_counts_forest(seed, tidx, n, params.bagging, dev)
         stats = splits.row_stats(labels, w, num_classes, task)   # (T, n, S)
+    S_dim = int(stats.shape[-1])
     fkeys = prng.fold_in(prng.prng_key(seed ^ 0x5EED, dev)[None, :],
                          torch.as_tensor(tidx, dtype=torch.int64, device=dev))
 
@@ -273,6 +377,8 @@ def build_forest(
 
     totals_np = None                      # (T, width, S), host
     Ls = [1] * T                          # current frontier size per tree
+    tables = None                         # carried hist tables (device)
+    maps_src = None                       # (ws, key_counts, Ls) of level-1
     for depth in range(params.max_depth + 1):
         if max(Ls) == 0:
             break
@@ -280,7 +386,8 @@ def build_forest(
 
         # carry the leaf totals into the new padding (root: compute once)
         if totals_np is None:
-            totals_np = _leaf_totals(leaf_of, stats, w, Lp).cpu().numpy()
+            totals_np = _leaf_totals(leaf_of, stats, w, Lp,
+                                     task).cpu().numpy()
         else:
             cur = np.zeros((T, Lp + 1, totals_np.shape[-1]), np.float32)
             k = min(Lp + 1, totals_np.shape[1])
@@ -307,18 +414,36 @@ def build_forest(
             break
 
         t_level = time.perf_counter()
+        # histogram subtraction: per-tree maps from the previous level's
+        # split bitmap + child row counts (smaller child = build slot)
+        subtract = bool(carries and tables is not None
+                        and maps_src is not None)
+        maps = {}
+        if subtract:
+            ws_prev, kc_prev, Ls_prev = maps_src
+            mp = np.zeros((3, T, Lp + 1), np.int32)
+            for t in range(T):
+                if Ls_prev[t]:
+                    mp[:, t] = _child_maps(ws_prev[t], kc_prev[t],
+                                           Ls_prev[t], Lp)
+            mp = torch.as_tensor(mp, device=dev)
+            maps = dict(prev_tables=tables, parent_of=mp[0], sib_of=mp[1],
+                        slot_of=mp[2])
         inp = LevelInputs(num_cols=num_cols, cat_cols=cat_cols,
                           labels=labels, sorted_vals=sorted_vals,
                           sorted_idx=sorted_idx, leaf_of=leaf_of, w=w,
                           stats=stats,
-                          totals=torch.as_tensor(totals_np, device=dev))
-        struct, leaf_of, next_totals = _fused_level_step_batched(
+                          totals=torch.as_tensor(totals_np, device=dev),
+                          bin_of=bin_of, **maps)
+        struct, leaf_of, next_totals, tables = _fused_level_step_batched(
             inp, torch.as_tensor(splittable_p, device=dev), fkeys, depth,
-            plan=plan, Lp=Lp)
+            plan=plan, Lp=Lp, subtract=subtract)
         with record_function("level.host_fetch"):
             host = {k: v.cpu().numpy() for k, v in struct.items()}
             totals_np = next_totals.cpu().numpy()
         wall = time.perf_counter() - t_level
+        if carries:
+            maps_src = (host["will_split"], host["key_counts"], list(Ls))
 
         ws = host["will_split"]
         Ls_next = [0] * T
@@ -328,17 +453,22 @@ def build_forest(
             L = Ls[t]
             host_t = {k: host[k][t] for k in host}
             next_open, any_split = _grow_level(
-                accs[t], open_nodes[t], host_t, L, m_num, depth)
+                accs[t], open_nodes[t], host_t, L, m_num, depth,
+                edges_np=edges_np)
             if collect_stats:
                 Lp_t = _pad_leaves(L, params.leaf_pad)
                 passes = int(min(m_prime * (1 if params.usb else L), m))
+                tbl_w = (Lp_t // 2 + 1) if carries and depth > 0 \
+                    else Lp_t + 1
                 stats_logs[t].append(LevelStats(
                     depth=depth, open_leaves=L,
                     network_bits_bitmap=int(counts[t, 1:L + 1].sum()),
                     network_bits_supersplit=int(m * (Lp_t + 1) * 64),
                     class_list_bits=class_list.storage_bits(n, L),
                     feature_passes=passes, rows_scanned=n * passes,
-                    wall_seconds=wall))
+                    wall_seconds=wall,
+                    hist_table_bytes=(m_num * tbl_w * params.num_bins
+                                      * S_dim * 4 if hist else 0)))
             if any_split:
                 open_nodes[t] = next_open
             Ls_next[t] = 2 * int(ws[t, 1:L + 1].sum())

@@ -30,6 +30,18 @@
 // Compiled with -fmad=false: the impurity expressions keep the reference's
 // operation order and no multiply-add is fused.  The serial lane is the
 // known limit of this first design (PERF.md).
+//
+// Where a block keeps its per-leaf state (ss_chunk_sums: L1*(S+1) floats;
+// ss_chunk_best: L1*(2S+3)) is a template parameter chosen by size at
+// launch: shared memory while it fits in a block's opt-in limit, else the
+// block's own slice of the scratch tensors the wrapper allocates with
+// torch.empty (csum/clast/cgain/cthr, which hold that state anyway: phase 1
+// accumulates straight into its output slice, phase 3 rescans in place over
+// its carried prefix and writes its best straight out; the level totals are
+// read where they lie).  A deep frontier (L1 = 16,385 at S = 2 is 459 KB of
+// phase-3 state) thus trains at any width; at these sizes the slices stay
+// L2-resident.  Both layouts run the same serial code in the same order, so
+// the result does not depend on the layout.
 #include <cuda_runtime.h>
 #include <math_constants.h>
 
@@ -145,6 +157,7 @@ __device__ __forceinline__ int stage_tile(
 }
 
 // Phase 1: per (tree, column, chunk) per-leaf stat sums and last value.
+template <bool SMEM>
 __global__ void ss_chunk_sums(
     const float* __restrict__ vals, const int* __restrict__ sidx,
     const int* __restrict__ leaf, const float* __restrict__ w,
@@ -152,11 +165,12 @@ __global__ void ss_chunk_sums(
     int m, int n, int L1, int S, int task, long long chunk,
     float* __restrict__ csum, float* __restrict__ clast) {
   extern __shared__ float smem[];
-  float* H = smem;                     // L1 * S
-  float* V = H + (size_t)L1 * S;       // L1
   __shared__ Tile tile;
   const int c = blockIdx.x, j = blockIdx.y, t = blockIdx.z;
   const int nc = gridDim.x, lane = threadIdx.x;
+  const size_t blk = ((size_t)t * m + j) * nc + c;
+  float* H = SMEM ? smem : csum + blk * L1 * S;                   // L1 * S
+  float* V = SMEM ? smem + (size_t)L1 * S : clast + blk * L1;     // L1
   for (int i = lane; i < L1 * S; i += WARP) H[i] = 0.0f;
   for (int i = lane; i < L1; i += WARP) V[i] = -CUDART_INF_F;
   __syncwarp();
@@ -180,9 +194,10 @@ __global__ void ss_chunk_sums(
     }
     __syncwarp();
   }
-  const size_t blk = ((size_t)t * m + j) * nc + c;
-  for (int i = lane; i < L1 * S; i += WARP) csum[blk * L1 * S + i] = H[i];
-  for (int i = lane; i < L1; i += WARP) clast[blk * L1 + i] = V[i];
+  if (SMEM) {
+    for (int i = lane; i < L1 * S; i += WARP) csum[blk * L1 * S + i] = H[i];
+    for (int i = lane; i < L1; i += WARP) clast[blk * L1 + i] = V[i];
+  }
 }
 
 // Phase 2: exclusive scan over chunks, in place.  One thread per
@@ -213,30 +228,36 @@ __global__ void ss_carry(float* __restrict__ csum, float* __restrict__ clast,
 }
 
 // Phase 3: rescan each chunk from its carried prefix; per-leaf best.
+template <bool SMEM>
 __global__ void ss_chunk_best(
     const float* __restrict__ vals, const int* __restrict__ sidx,
     const int* __restrict__ leaf, const float* __restrict__ w,
     const float* __restrict__ y, const unsigned char* __restrict__ cand,
     const float* __restrict__ totals, int m, int n, int L1, int S, int kind,
-    int task, float min_records, long long chunk,
-    const float* __restrict__ csum, const float* __restrict__ clast,
-    float* __restrict__ cgain, float* __restrict__ cthr) {
+    int task, float min_records, long long chunk, float* __restrict__ csum,
+    float* __restrict__ clast, float* __restrict__ cgain,
+    float* __restrict__ cthr) {
   extern __shared__ float smem[];
-  float* H = smem;                     // L1 * S, carried prefix
-  float* TOT = H + (size_t)L1 * S;     // L1 * S, level totals
-  float* V = TOT + (size_t)L1 * S;     // L1, last in-bag value
-  float* BG = V + L1;                  // L1, best gain
-  float* BT = BG + L1;                 // L1, its threshold
   __shared__ Tile tile;
   const int c = blockIdx.x, j = blockIdx.y, t = blockIdx.z;
   const int nc = gridDim.x, lane = threadIdx.x;
   const size_t blk = ((size_t)t * m + j) * nc + c;
-  for (int i = lane; i < L1 * S; i += WARP) {
-    H[i] = csum[blk * L1 * S + i];
-    TOT[i] = totals[(size_t)t * L1 * S + i];
+  const size_t LS = (size_t)L1 * S;
+  // carried prefix, level totals, last in-bag value, best gain, threshold
+  float* H = SMEM ? smem : csum + blk * LS;
+  const float* TOT = SMEM ? smem + LS : totals + (size_t)t * LS;
+  float* V = SMEM ? smem + 2 * LS : clast + blk * L1;
+  float* BG = SMEM ? V + L1 : cgain + blk * L1;
+  float* BT = SMEM ? BG + L1 : cthr + blk * L1;
+  if (SMEM) {
+    float* tot = smem + LS;
+    for (int i = lane; i < L1 * S; i += WARP) {
+      H[i] = csum[blk * LS + i];
+      tot[i] = totals[(size_t)t * LS + i];
+    }
+    for (int i = lane; i < L1; i += WARP) V[i] = clast[blk * L1 + i];
   }
   for (int i = lane; i < L1; i += WARP) {
-    V[i] = clast[blk * L1 + i];
     BG[i] = -CUDART_INF_F;
     BT[i] = 0.0f;
   }
@@ -284,9 +305,11 @@ __global__ void ss_chunk_best(
     }
     __syncwarp();
   }
-  for (int i = lane; i < L1; i += WARP) {
-    cgain[blk * L1 + i] = BG[i];
-    cthr[blk * L1 + i] = BT[i];
+  if (SMEM) {
+    for (int i = lane; i < L1; i += WARP) {
+      cgain[blk * L1 + i] = BG[i];
+      cthr[blk * L1 + i] = BT[i];
+    }
   }
 }
 
@@ -318,9 +341,32 @@ cudaError_t set_smem(const void* fn, size_t bytes) {
                               (int)bytes);
 }
 
+// Dynamic shared memory a block of these kernels may take: the device's
+// opt-in limit less the static staging tile.
+cudaError_t smem_limit(size_t* bytes) {
+  int dev = 0, optin = 0;
+  cudaError_t err = cudaGetDevice(&dev);
+  if (err != cudaSuccess) return err;
+  err = cudaDeviceGetAttribute(&optin,
+                               cudaDevAttrMaxSharedMemoryPerBlockOptin, dev);
+  if (err != cudaSuccess) return err;
+  *bytes = (size_t)optin - sizeof(Tile);
+  return cudaSuccess;
+}
+
 }  // namespace
 
 extern "C" int split_scan_max_stats() { return MAXS; }
+
+// Where each phase keeps its per-leaf state for (L1, S): bit 0 set when
+// ss_chunk_sums uses shared memory, bit 1 when ss_chunk_best does (clear
+// bits: the block's slice of the scratch tensors).  Negative on error.
+extern "C" int split_scan_layout(int L1, int S) {
+  size_t limit = 0;
+  if (smem_limit(&limit) != cudaSuccess) return -1;
+  return ((size_t)L1 * (S + 1) * sizeof(float) <= limit ? 1 : 0)
+      | ((size_t)L1 * (2 * S + 3) * sizeof(float) <= limit ? 2 : 0);
+}
 
 // Launches the four kernels on `stream`; returns the first CUDA error.
 // Shapes: vals/sidx (m, n); leaf/w (T, n); y (n,); cand (T, m, L1) bytes;
@@ -336,25 +382,38 @@ extern "C" int split_scan_launch(
     return (int)cudaErrorInvalidValue;
   cudaStream_t stream = (cudaStream_t)stream_ptr;
   const dim3 grid(nc, m, T);
+  const int layout = split_scan_layout(L1, S);
+  if (layout < 0) return (int)cudaErrorInvalidDevice;
   const size_t smem1 = (size_t)L1 * (S + 1) * sizeof(float);
   const size_t smem3 = (size_t)L1 * (2 * S + 3) * sizeof(float);
-  cudaError_t err = set_smem((const void*)ss_chunk_sums, smem1);
-  if (err != cudaSuccess) return (int)err;
-  err = set_smem((const void*)ss_chunk_best, smem3);
-  if (err != cudaSuccess) return (int)err;
+  cudaError_t err;
 
-  ss_chunk_sums<<<grid, WARP, smem1, stream>>>(vals, sidx, leaf, w, y, cand,
-                                              m, n, L1, S, task, chunk, csum,
-                                              clast);
+  if (layout & 1) {
+    err = set_smem((const void*)ss_chunk_sums<true>, smem1);
+    if (err != cudaSuccess) return (int)err;
+    ss_chunk_sums<true><<<grid, WARP, smem1, stream>>>(
+        vals, sidx, leaf, w, y, cand, m, n, L1, S, task, chunk, csum, clast);
+  } else {
+    ss_chunk_sums<false><<<grid, WARP, 0, stream>>>(
+        vals, sidx, leaf, w, y, cand, m, n, L1, S, task, chunk, csum, clast);
+  }
   if ((err = cudaGetLastError()) != cudaSuccess) return (int)err;
   const long long TM = (long long)T * m;
   const long long carry_threads = TM * L1 * S;
   ss_carry<<<(unsigned)((carry_threads + 255) / 256), 256, 0, stream>>>(
       csum, clast, (int)TM, nc, L1, S);
   if ((err = cudaGetLastError()) != cudaSuccess) return (int)err;
-  ss_chunk_best<<<grid, WARP, smem3, stream>>>(
-      vals, sidx, leaf, w, y, cand, totals, m, n, L1, S, kind, task,
-      min_records, chunk, csum, clast, cgain, cthr);
+  if (layout & 2) {
+    err = set_smem((const void*)ss_chunk_best<true>, smem3);
+    if (err != cudaSuccess) return (int)err;
+    ss_chunk_best<true><<<grid, WARP, smem3, stream>>>(
+        vals, sidx, leaf, w, y, cand, totals, m, n, L1, S, kind, task,
+        min_records, chunk, csum, clast, cgain, cthr);
+  } else {
+    ss_chunk_best<false><<<grid, WARP, 0, stream>>>(
+        vals, sidx, leaf, w, y, cand, totals, m, n, L1, S, kind, task,
+        min_records, chunk, csum, clast, cgain, cthr);
+  }
   if ((err = cudaGetLastError()) != cudaSuccess) return (int)err;
   const long long red_threads = TM * L1;
   ss_reduce<<<(unsigned)((red_threads + 255) / 256), 256, 0, stream>>>(

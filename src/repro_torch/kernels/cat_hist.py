@@ -80,12 +80,17 @@ def _check_inputs(x, leaf, w, y):
 def fixed_point_scales(leaf, w, y, L1):
     """One power-of-two scale per regression stat channel: the largest that
     keeps n · max|stat| · scale below 2^61, so no int64 sum can overflow."""
-    n = leaf.shape[-1]
     inb = (w > 0) & (leaf > 0) & (leaf < L1)
     wy = w * y
     mags = torch.stack([torch.where(inb, w, 0.0).abs().amax(),
                         torch.where(inb, wy, 0.0).abs().amax(),
                         torch.where(inb, wy * y, 0.0).abs().amax()]).tolist()
+    return power_of_two_scales(mags, leaf.shape[-1])
+
+
+def power_of_two_scales(mags, n: int) -> list:
+    """The largest power of two per magnitude in `mags` that keeps
+    n · mag · scale below 2^61."""
     n_bits = max(1, math.ceil(math.log2(max(n, 2))))
     scales = []
     for mag in mags:

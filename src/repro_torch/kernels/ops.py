@@ -12,7 +12,7 @@ from __future__ import annotations
 
 import torch
 
-from repro_torch.kernels import cat_hist, split_scan
+from repro_torch.kernels import cat_hist, feat_hist, split_scan
 
 
 def stat_dim(num_classes: int, task: str) -> int:
@@ -47,4 +47,19 @@ def categorical_tables(cat_cols, leaf_of, w, labels, *, V, Lp,
     return cat_hist.cat_hist(
         cat_cols.contiguous(), leaf_of.contiguous(), w.contiguous(),
         labels.to(torch.float32).contiguous(), L1=Lp + 1, V=V,
+        num_stats=stat_dim(num_classes, task), task=task)
+
+
+def feature_tables(bin_of, slots, w, labels, *, B, W,
+                   task="classification", num_classes=2):
+    """Hist-mode tables (T, m, W, B, S) for ALL numeric columns in one row
+    pass, through the `feat_hist` kernel.
+
+    bin_of (m, n) packed bucket ids; slots (T, n) scatter slots (0 =
+    discard: raw leaf ids on the plain path, packed build slots under
+    subtraction); w (T, n); labels (n,); W the slot-axis width.
+    """
+    return feat_hist.feat_hist(
+        bin_of.contiguous(), slots.to(torch.int32).contiguous(),
+        w.contiguous(), labels.to(torch.float32).contiguous(), W=W, B=B,
         num_stats=stat_dim(num_classes, task), task=task)

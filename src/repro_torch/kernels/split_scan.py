@@ -14,7 +14,9 @@ presorted columns of n rows:
     -> gain, thr (T, m, L1) f32: best split per (tree, column, leaf)
 
 CUDA source: `repro_torch/csrc/split_scan.cu`, which states the bound and
-the design.  `split_scan` launches it for CUDA tensors and takes the plain
+the design.  Its per-leaf state lives in shared memory while it fits and
+in each block's slice of the wrapper's scratch tensors past that, so the
+kernel takes any frontier width (`state_layout`).  `split_scan` launches it for CUDA tensors and takes the plain
 version only for CPU tensors; `split_scan_plain` is the Pallas kernel's own
 recurrence in row blocks of torch ops (`splits.scan_supersplit`).
 Binary classification gains are bit-equal between the two (integer
@@ -39,7 +41,6 @@ TASK = {"classification": 0, "regression": 1}
 TILE = 256                  # rows a block stages per step (csrc TILE)
 TARGET_BLOCKS = 132 * 32    # 32 one-warp blocks per SM of an H100
 SCRATCH_BYTES = 1 << 30     # bound on the per-chunk scratch
-SMEM_BYTES = 227 * 1024 - 4096   # dynamic shared memory a block may take
 
 launches = 0                # kernel launches (one per wrapper call)
 
@@ -83,6 +84,8 @@ def _lib():
             + [p] * 6 + [p])
         lib.split_scan_launch.restype = i
         lib.split_scan_max_stats.restype = i
+        lib.split_scan_layout.argtypes = [i, i]
+        lib.split_scan_layout.restype = i
         lib._typed = True
     return lib
 
@@ -107,9 +110,6 @@ def _check_inputs(vals, sidx, leaf, w, y, cand, totals):
         if t.device != vals.device:
             raise ValueError(f"split_scan: {name} is on {t.device}, "
                              f"vals on {vals.device}")
-    if L1 * (2 * S + 3) * 4 > SMEM_BYTES:
-        raise ValueError(f"split_scan: {L1} leaves x {S} stats exceed a "
-                         f"block's shared memory")
 
 
 def split_scan(vals, sidx, leaf, w, y, cand, totals, *, impurity="gini",
@@ -149,6 +149,16 @@ def split_scan(vals, sidx, leaf, w, y, cand, totals, *, impurity="gini",
     global launches
     launches += 1
     return gain, thr
+
+
+def state_layout(L1: int, S: int) -> dict:
+    """Where the kernel's two scan phases keep their per-leaf state at
+    (L1, S) on the current card: "shared" or "global" each."""
+    bits = _lib().split_scan_layout(L1, S)
+    if bits < 0:
+        raise RuntimeError("split_scan_layout: no CUDA device")
+    return {"sums": "shared" if bits & 1 else "global",
+            "best": "shared" if bits & 2 else "global"}
 
 
 def bound_bytes(T: int, m: int, n: int, L1: int, S: int) -> int:

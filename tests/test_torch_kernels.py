@@ -313,8 +313,9 @@ def _small_forest_data(task):
 @pytest.mark.gpu
 @pytest.mark.parametrize("backend", ["kernel", "scan"])
 def test_forest_on_card_equals_cpu_fit(cuda, backend):
-    """A classification fit on the card (kernels, or the plain scan on
-    CUDA tensors) grows the CPU fit's trees bit for bit."""
+    """A classification fit on the card (the kernels, or the plain numeric
+    scan with `cat_hist` on CUDA tensors) grows the CPU fit's trees bit
+    for bit."""
     from repro_torch.core import tree as tree_lib
     from repro_torch.core.forest import RandomForest
     ds = _small_forest_data("classification")
@@ -346,3 +347,114 @@ def test_regression_forest_on_card_matches_cpu(cuda):
             np.testing.assert_array_equal(getattr(b, k), getattr(a, k))
         np.testing.assert_allclose(b.value, a.value, rtol=1e-5, atol=1e-5)
         np.testing.assert_allclose(b.threshold, a.threshold, rtol=1e-6)
+
+
+def _feat_case(B, T, task, n=4000, m=3, W=9, seed=0):
+    rng = np.random.default_rng(seed)
+    dt = np.uint8 if B <= 256 else np.uint16
+    x = rng.integers(0, B, size=(m, n)).astype(dt)
+    slot = rng.integers(0, W, (T, n)).astype(np.int32)
+    w = rng.integers(0, 3, (T, n)).astype(np.float32)
+    y = (rng.integers(0, 2, n).astype(np.float32) if task == "classification"
+         else (rng.normal(size=n) * 3 + 1).astype(np.float32))
+    return [torch.as_tensor(a) for a in (x, slot, w, y)]
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("B", [255, 1024])
+@pytest.mark.parametrize("task", ["classification", "regression"])
+def test_feat_hist_cuda_matches_plain(cuda, B, task):
+    """uint8 and uint16 bins; a tree batch larger than one launch takes."""
+    from repro_torch.kernels import feat_hist
+    S = 2 if task == "classification" else 3
+    args = _feat_case(B, 10, task)
+    kw = dict(W=9, B=B, num_stats=S, task=task)
+    plain = feat_hist.feat_hist(*args, **kw)
+    before = feat_hist.launches
+    got = feat_hist.feat_hist(*[a.to(cuda) for a in args], **kw)
+    assert feat_hist.launches - before == 2
+    if task == "classification":
+        np.testing.assert_array_equal(got.cpu().numpy(), plain.numpy())
+    else:
+        again = feat_hist.feat_hist(*[a.to(cuda) for a in args], **kw)
+        assert torch.equal(got, again)
+        np.testing.assert_allclose(got.cpu().numpy(), plain.numpy(),
+                                   rtol=1e-4, atol=1e-4)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("task", ["classification", "regression"])
+def test_hist_forest_on_card_equals_cpu_fit(cuda, task):
+    """Hist mode on the card (feat_hist + cat_hist; subtraction for
+    classification) grows the CPU fit's trees: bit for bit for
+    classification, the same structure with values within rtol 1e-5 for
+    regression."""
+    from repro_torch.core import tree as tree_lib
+    from repro_torch.core.forest import RandomForest
+    ds = _small_forest_data(task)
+    kw = dict(max_depth=5, backend="kernel", split_mode="hist", num_bins=64)
+    if task == "regression":
+        kw.update(task="regression", impurity="variance", min_records=5)
+    params = tree_lib.TreeParams(**kw)
+    gpu = RandomForest(params, num_trees=3, seed=4, tree_batch=3).fit(ds)
+    cpu = RandomForest(params, num_trees=3, seed=4, tree_batch=3,
+                       device="cpu").fit(ds)
+    exact = task == "classification"
+    for a, b in zip(cpu.trees, gpu.trees):
+        for k in ("feature", "threshold", "is_cat", "cat_mask", "children"):
+            np.testing.assert_array_equal(getattr(b, k), getattr(a, k))
+        if exact:
+            np.testing.assert_array_equal(b.value, a.value)
+        else:
+            np.testing.assert_allclose(b.value, a.value, rtol=1e-5,
+                                       atol=1e-5)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("n,L,C,sums", [
+    (20000, 16384, 2, "shared"),     # phase 3's state past shared memory
+    (30000, 32768, 2, "global"),     # both phases' state in device memory
+    (20000, 4096, 16, "global"),     # 16 classes: both, at a narrower L1
+])
+def test_split_scan_cuda_past_shared_memory(cuda, n, L, C, sums):
+    """Past a block's shared memory the scan keeps its per-leaf state in
+    device memory (phase 3 from L1 = 16,385 in binary, phase 1 as well
+    from L1 = 32,769, both from L1 = 4,097 at 16 classes); binary gini
+    stays bit-equal to the plain version, 16 classes within rtol 1e-5."""
+    m = 2
+    sv, si, leaf, w, y, cand = _mk(5, n, m, L, C, dup=True)
+    assert split_scan.state_layout(L + 1, C) == {"sums": sums,
+                                                 "best": "global"}
+    g, t = _port(sv, si, leaf, w, y, cand, L, C, "gini", "classification",
+                 device=cuda)
+    g_p, t_p = _port(sv, si, leaf, w, y, cand, L, C, "gini",
+                     "classification")
+    assert np.isfinite(g_p.numpy()).sum() > 1000       # real splits scored
+    if C == 2:
+        np.testing.assert_array_equal(g.cpu().numpy(), g_p.numpy())
+        np.testing.assert_array_equal(t.cpu().numpy(), t_p.numpy())
+    else:
+        np.testing.assert_allclose(g.cpu().numpy(), g_p.numpy(), rtol=1e-5)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("backend", ["segment", "scan"])
+def test_hist_fit_on_card_launches_kernels_on_any_backend(cuda, backend):
+    """The backend is only a label in hist mode: a fit on the card with
+    the default `backend="segment"` (or "scan") builds its tables with
+    feat_hist and cat_hist and grows the CPU fit's trees."""
+    from repro_torch.core import tree as tree_lib
+    from repro_torch.core.forest import RandomForest
+    from repro_torch.kernels import feat_hist
+    ds = _small_forest_data("classification")
+    params = tree_lib.TreeParams(max_depth=4, backend=backend,
+                                 split_mode="hist", num_bins=64)
+    feat_hist.launches = cat_hist.launches = 0
+    gpu = RandomForest(params, num_trees=2, seed=3, tree_batch=2).fit(ds)
+    assert feat_hist.launches > 0 and cat_hist.launches > 0
+    cpu = RandomForest(params, num_trees=2, seed=3, tree_batch=2,
+                       device="cpu").fit(ds)
+    for a, b in zip(cpu.trees, gpu.trees):
+        for k in ("feature", "threshold", "is_cat", "cat_mask", "children",
+                  "value"):
+            np.testing.assert_array_equal(getattr(b, k), getattr(a, k))
