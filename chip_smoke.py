@@ -17,8 +17,11 @@ Phases, each fatal on failure:
      classification and regression); a depth-16 exact fit on 2^18 noisy
      numeric rows that must reach a padded frontier of 8192 (and grow the
      same trees twice); then every kernel at its main path's shapes with
-     its times (CUDA events, median of several runs) — feat_hist on the
-     inputs of every level of one tree batch of fit (b) below;
+     its times (CUDA events, median of several runs); split_scan and
+     cat_hist on the inputs of every level of one tree batch of the exact
+     fit of phase 3, each held against its plain version (bit-equal) and
+     timed; feat_hist on the inputs of every level of one tree batch of
+     fit (b) below;
   3. train `RandomForest(TreeParams(max_depth=10, backend="kernel"),
      num_trees=4, tree_batch=2)` on 2^23 Leo-shaped rows (3 numeric + 79
      categorical columns, arities log-spaced 2..10,000) made with numpy
@@ -82,6 +85,20 @@ def cuda_ms(fn, runs: int = TIMED_RUNS) -> float:
         times.append(start.elapsed_time(end))
     times.sort()
     return times[len(times) // 2]
+
+
+def host_ms(fn, runs: int = TIMED_RUNS) -> float:
+    """Host milliseconds to enqueue one `fn()` (no synchronisation inside
+    the timed calls): where it passes the card's time, the host bounds."""
+    import torch
+    fn()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(runs):
+        fn()
+    host = (time.perf_counter() - t0) / runs * 1e3
+    torch.cuda.synchronize()
+    return host
 
 
 def bound_ms(nbytes: float, flops: float) -> tuple[float, str]:
@@ -241,6 +258,9 @@ def check_cat_hist(args, dev, g, n, T, m, L1, V, task, timed, inputs=None):
                                                             **kw), runs=1)
         row["library_ms"] = cuda_ms(
             library_index_add(x, leaf, w, y, L1, V, S, task), runs=3)
+        row["host_ms"] = host_ms(lambda: ch.cat_hist(x, leaf, w, y, **kw))
+        row["kernels"] = kernel_split(lambda: ch.cat_hist(x, leaf, w, y,
+                                                          **kw))
         adds = ((leaf > 0) & (w > 0)).sum().item() * m
         row["bound_ms"], row["bound_by"] = bound_ms(
             ch.bound_bytes(T, m, n, L1, V, S), adds)
@@ -478,6 +498,150 @@ def capture_feat_hist_levels(args, ds):
     finally:
         kops.feature_tables = adapter
     return levels
+
+
+def exact_params(args):
+    from repro_torch.core import tree as tree_lib
+    return tree_lib.TreeParams(max_depth=args.depth, backend="kernel")
+
+
+def capture_exact_levels(args, ds):
+    """The arguments of every `split_scan` and `cat_hist` call of one tree
+    batch of the exact Leo fit (phase 3), level by level: the fit runs
+    through `RandomForest.fit` with recorders around the port's
+    `ops.split_scan_supersplit` and `ops.categorical_tables` adapters,
+    which keep each level's inputs as the kernels' wrappers receive them
+    (the presorted and categorical columns, labels and bag weights are the
+    same tensors at every level and are kept once)."""
+    import torch
+    from repro_torch.core.forest import RandomForest
+    from repro_torch.kernels import ops as kops
+    levels = []
+    ss_adapter = kops.split_scan_supersplit
+    cat_adapter = kops.categorical_tables
+
+    def own(t):                 # a contiguous copy the fit cannot change
+        return t.clone(memory_format=torch.contiguous_format)
+
+    def record_ss(sorted_vals, sorted_idx, leaf_of, w, labels, cand, totals,
+                  impurity="gini", task="classification", min_records=1.0):
+        levels.append(dict(ss=dict(
+            ins=(sorted_vals.contiguous(), sorted_idx.contiguous(),
+                 own(leaf_of), w.contiguous(),
+                 labels.to(torch.float32).contiguous(), own(cand),
+                 own(totals)),
+            kw=dict(impurity=impurity, task=task, min_records=min_records))))
+        return ss_adapter(sorted_vals, sorted_idx, leaf_of, w, labels, cand,
+                          totals, impurity, task, min_records)
+
+    def record_cat(cat_cols, leaf_of, w, labels, *, V, Lp, task,
+                   num_classes):
+        ss = levels[-1]["ss"]["ins"]
+        levels[-1]["cat"] = dict(
+            ins=(cat_cols.contiguous(), ss[2], ss[3], ss[4]),
+            kw=dict(L1=Lp + 1, V=V, num_stats=kops.stat_dim(num_classes,
+                                                            task),
+                    task=task))
+        if not torch.equal(leaf_of, ss[2]):
+            fail("capture: the categorical engine saw other leaf ids than "
+                 "the numeric engine of the same level")
+        return cat_adapter(cat_cols, leaf_of, w, labels, V=V, Lp=Lp,
+                           task=task, num_classes=num_classes)
+
+    kops.split_scan_supersplit = record_ss
+    kops.categorical_tables = record_cat
+    try:
+        RandomForest(exact_params(args), num_trees=TREE_BATCH,
+                     seed=args.seed, tree_batch=TREE_BATCH).fit(ds)
+    finally:
+        kops.split_scan_supersplit = ss_adapter
+        kops.categorical_tables = cat_adapter
+    return levels
+
+
+def kernel_split(fn, runs: int = 3) -> dict:
+    """Device milliseconds per call of each kernel that `fn()` launches,
+    by name (torch.profiler, `runs` calls after a warm-up)."""
+    import collections
+    import re
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(runs):
+            fn()
+        torch.cuda.synchronize()
+    out = collections.defaultdict(float)
+    for e in prof.events():
+        if e.device_type != DeviceType.CPU:
+            name = re.sub(r"^void |\(anonymous namespace\)::|[<(].*$", "",
+                          e.name)[:40]
+            out[name] += (e.time_range.end - e.time_range.start) / 1e3 / runs
+    return {k: round(v, 4) for k, v in out.items()}
+
+
+def exact_main_levels(args, dev, ds):
+    """split_scan and cat_hist on the inputs that every level of one tree
+    batch of the exact Leo fit gives them (`capture_exact_levels`): at each
+    level both are held against their plain versions (bit-equal: binary
+    gini, classification counts) and timed, cat_hist also on the columns
+    of arity <= 64 and > 64 alone, and the device time of each kernel the
+    two launch is split by name (`kernel_split`).  Returns the per-level
+    and summed times."""
+    import torch
+    from repro_torch.kernels import cat_hist as ch
+    from repro_torch.kernels import split_scan as ss
+    levels = capture_exact_levels(args, ds)
+    low = [j for j, a in enumerate(ds.arities) if a <= 64]
+    high = [j for j, a in enumerate(ds.arities) if a > 64]
+    x = levels[0]["cat"]["ins"][0]
+    x_low, x_high = x[low].contiguous(), x[high].contiguous()
+    rows = []
+    for depth, lv in enumerate(levels):
+        s_ins, s_kw = lv["ss"]["ins"], lv["ss"]["kw"]
+        c_ins, c_kw = lv["cat"]["ins"], lv["cat"]["kw"]
+        gk, tk = ss.split_scan(*s_ins, **s_kw)
+        gp, tp = ss.split_scan_plain(*s_ins, **s_kw)
+        if not (torch.equal(gk, gp) and torch.equal(tk, tp)):
+            fail(f"split_scan on level {depth} of the exact fit: not "
+                 f"bit-equal")
+        del gk, tk, gp, tp
+        ck = ch.cat_hist(*c_ins, **c_kw)
+        cp = ch.cat_hist_plain(*c_ins, **c_kw)
+        if not torch.equal(ck, cp):
+            fail(f"cat_hist on level {depth} of the exact fit: not "
+                 f"bit-equal")
+        del ck, cp
+        torch.cuda.empty_cache()
+        leaf, w = s_ins[2], s_ins[3]
+        r = dict(depth=depth, L1=c_kw["L1"],
+                 open_leaves=sum(int(torch.unique(lt[(lt > 0) & (wt > 0)])
+                                     .numel()) for lt, wt in zip(leaf, w)),
+                 split_scan_ms=cuda_ms(lambda: ss.split_scan(*s_ins,
+                                                             **s_kw)),
+                 cat_hist_ms=cuda_ms(lambda: ch.cat_hist(*c_ins, **c_kw)),
+                 cat_hist_arity_le_64_ms=cuda_ms(
+                     lambda: ch.cat_hist(x_low, *c_ins[1:], **c_kw)),
+                 cat_hist_arity_gt_64_ms=cuda_ms(
+                     lambda: ch.cat_hist(x_high, *c_ins[1:], **c_kw)),
+                 split_scan_kernels=kernel_split(
+                     lambda: ss.split_scan(*s_ins, **s_kw)),
+                 cat_hist_kernels=kernel_split(
+                     lambda: ch.cat_hist(*c_ins, **c_kw)))
+        torch.cuda.empty_cache()
+        log(f"  exact fit level {json.dumps(r)}")
+        rows.append(r)
+    out = {k: sum(r[k] for r in rows) for k in ("split_scan_ms",
+                                                "cat_hist_ms")}
+    log(f"  over the {len(rows)} levels of one tree batch of the exact fit "
+        f"(bit-equal at each): split_scan {out['split_scan_ms']:.3f} ms, "
+        f"cat_hist {out['cat_hist_ms']:.3f} ms; deepest level "
+        f"{rows[-1]['split_scan_ms']:.3f} / {rows[-1]['cat_hist_ms']:.3f} ms")
+    del levels
+    torch.cuda.empty_cache()
+    return dict(levels=rows, **out)
 
 
 def feat_hist_main_shapes(args, dev, ds):
@@ -850,6 +1014,9 @@ def main() -> int:
     ap.add_argument("--depth", type=int, default=10)
     ap.add_argument("--skip-train", action="store_true",
                     help="stop after the kernel checks (development)")
+    ap.add_argument("--exact-levels", action="store_true",
+                    help="build, then only the per-level kernel checks and "
+                         "times on the exact fit's inputs (development)")
     ap.add_argument("--profile", action="store_true",
                     help="profile the repeat fit: device time per part")
     args = ap.parse_args()
@@ -888,13 +1055,18 @@ def main() -> int:
                 log(f"    {name}: {line.strip()}")
 
     log("phase 2: kernels against their plain versions")
-    phase2(args, dev)
-    deep_fit(args, dev)
     n_all = (1 << args.train_log2n) + TEST_ROWS
+    cut = 1 << args.train_log2n
+    from repro_torch.core.dataset import from_numpy
+    if not args.exact_levels:
+        phase2(args, dev)
+        deep_fit(args, dev)
     t0 = time.perf_counter()
     num, cat, y, arities = leo_dataset(args.seed, n_all)
-    from repro_torch.core.dataset import from_numpy
-    cut = 1 << args.train_log2n
+    if args.exact_levels:
+        exact_main_levels(args, dev, from_numpy(num[:cut], cat[:cut],
+                                                y[:cut], arities))
+        return 0
     train = from_numpy(num[:cut], cat[:cut], y[:cut], arities)
     test = from_numpy(num[cut:], cat[cut:], y[cut:], arities)
     del num, cat, y
@@ -908,6 +1080,7 @@ def main() -> int:
         f"{maj_train.m_num} numeric columns; made in "
         f"{time.perf_counter() - t0:.2f} s")
     main_rows = phase2_main_shapes(args, dev, train)
+    exact_levels = exact_main_levels(args, dev, train)
     main_rows["feat_hist"] = feat_hist_main_shapes(args, dev, maj_train)
     log(f"  feat_hist main-path shapes {json.dumps(main_rows['feat_hist'])}")
     if args.skip_train:
@@ -931,6 +1104,9 @@ def main() -> int:
                             "src/repro/kernels/cat_hist.py:64", fit_info),
                "feat_hist": ("src/repro_torch/csrc/feat_hist.cu",
                              "src/repro/kernels/feat_hist.py:83", hist_b)}
+    levels_ms = {"split_scan": exact_levels["split_scan_ms"],
+                 "cat_hist": exact_levels["cat_hist_ms"],
+                 "feat_hist": main_rows["feat_hist"]["levels_ms"]}
     for name, (source, replaces, run) in sources.items():
         r = main_rows[name]
         kernels.append(dict(
@@ -938,7 +1114,7 @@ def main() -> int:
             launches=run["launches"][name],
             max_abs_err=r["max_abs_err"], ms=r["ms"], plain_ms=r["plain_ms"],
             bound_ms=r["bound_ms"], bound_by=r["bound_by"],
-            library_ms=r["library_ms"]))
+            library_ms=r["library_ms"], levels_ms=levels_ms[name]))
     log(f"  total {time.perf_counter() - t_start:.1f} s")
     print(json.dumps({"kernels": kernels}), flush=True)
     print(smi, flush=True)

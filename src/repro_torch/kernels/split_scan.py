@@ -14,11 +14,15 @@ presorted columns of n rows:
     -> gain, thr (T, m, L1) f32: best split per (tree, column, leaf)
 
 CUDA source: `repro_torch/csrc/split_scan.cu`, which states the bound and
-the design.  Its per-leaf state lives in shared memory while it fits and
-in each block's slice of the wrapper's scratch tensors past that, so the
-kernel takes any frontier width (`state_layout`).  `split_scan` launches it for CUDA tensors and takes the plain
-version only for CPU tensors; `split_scan_plain` is the Pallas kernel's own
-recurrence in row blocks of torch ops (`splits.scan_supersplit`).
+the design: one packed 16-byte state word per (tree, row), gathered once
+per presorted row, and a warp-parallel recurrence (lanes grouped by leaf
+with `__match_any_sync`, every sum still taken in row order).  Its
+per-leaf state lives in shared memory while it fits and in each block's
+slice of the wrapper's scratch tensors past that, so the kernel takes any
+frontier width (`state_layout`).  `split_scan` launches it for CUDA
+tensors and takes the plain version only for CPU tensors;
+`split_scan_plain` is the Pallas kernel's own recurrence in row blocks of
+torch ops (`splits.scan_supersplit`).
 Binary classification gains are bit-equal between the two (integer
 prefixes, the same operation order).  With more classes, entropy or
 regression they agree to float32 rounding of the impurity terms, which
@@ -81,7 +85,7 @@ def _lib():
         p, i = ctypes.c_void_p, ctypes.c_int
         lib.split_scan_launch.argtypes = (
             [p] * 7 + [i] * 7 + [ctypes.c_float, i, ctypes.c_longlong]
-            + [p] * 6 + [p])
+            + [p] * 7 + [p])
         lib.split_scan_launch.restype = i
         lib.split_scan_max_stats.restype = i
         lib.split_scan_layout.argtypes = [i, i]
@@ -137,14 +141,15 @@ def split_scan(vals, sidx, leaf, w, y, cand, totals, *, impurity="gini",
     csum = torch.empty((T, m, nc, L1, S), dtype=torch.float32, device=dev)
     clast, cgain, cthr = (torch.empty((T, m, nc, L1), dtype=torch.float32,
                                       device=dev) for _ in range(3))
+    state = torch.empty((T, n, 4), dtype=torch.int32, device=dev)
     gain = torch.empty((T, m, L1), dtype=torch.float32, device=dev)
     thr = torch.empty_like(gain)
     P = _build.ptr
     err = lib.split_scan_launch(
         P(vals), P(sidx), P(leaf), P(w), P(y), P(cand.view(torch.uint8)),
         P(totals), T, m, n, L1, S, IMPURITY[impurity], TASK[task],
-        float(min_records), nc, chunk, P(csum), P(clast), P(cgain), P(cthr),
-        P(gain), P(thr), _build.stream_ptr(dev))
+        float(min_records), nc, chunk, P(state), P(csum), P(clast),
+        P(cgain), P(cthr), P(gain), P(thr), _build.stream_ptr(dev))
     _build.check(err, "split_scan launch")
     global launches
     launches += 1

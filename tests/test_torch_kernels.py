@@ -49,20 +49,23 @@ def _mk(seed, n, m, L, C, dup=False, task="classification"):
     return sv, si, leaf, w, y, cand
 
 
-def _port(sv, si, leaf, w, y, cand, L, C, impurity, task, device="cpu"):
+def _port(sv, si, leaf, w, y, cand, L, C, impurity, task, device="cpu",
+          min_records=1.0):
     """The port's split_scan on one tree (T = 1)."""
     t = lambda a: torch.as_tensor(np.ascontiguousarray(a), device=device)
     S = C if task == "classification" else 3
     from repro_torch.core import splits
-    stats = splits.row_stats(t(y), t(w), S, task)
-    tot = torch.zeros((L + 1, S), device=device)
-    tot.index_add_(0, t(leaf).long(),
-                   torch.where(((t(w) > 0) & (t(leaf) > 0))[:, None], stats,
-                               0.0))
+    # totals summed on the CPU: the same bits for both versions (a CUDA
+    # float index_add_ of regression stats changes from run to run)
+    c = lambda a: torch.as_tensor(np.ascontiguousarray(a))
+    tot = torch.zeros((L + 1, S)).index_add_(
+        0, c(leaf).long(),
+        torch.where(((c(w) > 0) & (c(leaf) > 0))[:, None],
+                    splits.row_stats(c(y), c(w), S, task), 0.0)).to(device)
     return split_scan.split_scan(
         t(sv), t(si), t(leaf)[None], t(w)[None], t(y.astype(np.float32)),
         t(cand)[None], tot[None], impurity=impurity, task=task,
-        min_records=1.0)
+        min_records=min_records)
 
 
 def _reference_scan(ref, sv, si, leaf, w, y, cand, L, C, impurity, task):
@@ -238,6 +241,148 @@ def test_fixed_point_scales_bound_the_sums():
     for s, mag in zip(scales, mags):
         assert 1000 * mag * s < 2.0 ** 62
         assert 1000 * mag * s * 8 > 2.0 ** 62 / 1024    # not wastefully small
+
+
+def _naive_buckets(leaf, w, L1):
+    """Per tree: the in-bag open-leaf rows, leaf by leaf, rows ascending."""
+    out = []
+    for lf, ww in zip(leaf, w):
+        out.append([r for h in range(1, L1) for r in range(len(lf))
+                    if lf[r] == h and ww[r] > 0])
+    return out
+
+
+@pytest.mark.parametrize("L1", [2, 9, 40])
+def test_leaf_buckets_plain_is_a_stable_sort_by_leaf(L1):
+    rng = np.random.default_rng(L1)
+    T, n = 3, 700
+    leaf = rng.integers(0, L1 + 3, (T, n)).astype(np.int32)  # some >= L1
+    w = rng.integers(0, 3, (T, n)).astype(np.float32)
+    y = rng.normal(size=n).astype(np.float32)
+    rows, wl, yl, lstart, _ = cat_hist.leaf_buckets(
+        torch.as_tensor(leaf), torch.as_tensor(w), torch.as_tensor(y), L1)
+    for t, want in enumerate(_naive_buckets(leaf, w, L1)):
+        k = int(lstart[t, -1])
+        assert k == len(want)
+        np.testing.assert_array_equal(rows[t, :k].numpy(), want)
+        np.testing.assert_array_equal(wl[t, :k].numpy(), w[t, want])
+        np.testing.assert_array_equal(yl[t, :k].numpy(), y[want])
+        counts = np.bincount(leaf[t][w[t] > 0], minlength=L1 + 3)[:L1]
+        counts[0] = 0
+        np.testing.assert_array_equal(np.diff(lstart[t].numpy()), counts)
+
+
+def test_leaf_buckets_plain_packs_row_and_class():
+    """With `classes`, the row word is row · (C+1) + class, C for a label
+    outside [0, C), and the lists are otherwise the unpacked ones."""
+    rng = np.random.default_rng(4)
+    leaf = torch.as_tensor(rng.integers(0, 6, (2, 500)).astype(np.int32))
+    w = torch.as_tensor(rng.integers(0, 3, (2, 500)).astype(np.float32))
+    y = torch.as_tensor(rng.integers(-1, 4, 500).astype(np.float32))
+    plain = cat_hist.leaf_buckets(leaf, w, y, 5)
+    packed = cat_hist.leaf_buckets(leaf, w, y, 5, classes=3)
+    assert packed.y is None and torch.equal(packed.lstart, plain.lstart)
+    assert torch.equal(packed.w, plain.w)
+    np.testing.assert_array_equal(packed.rows // 4, plain.rows)
+    cls = plain.y.to(torch.int32)
+    want = torch.where((cls >= 0) & (cls < 3), cls, 3)
+    np.testing.assert_array_equal(packed.rows % 4, want)
+
+
+def test_bucket_chunks_cover_the_rows_within_the_count_bound():
+    for n, T, L1 in [(1 << 23, 2, 513), (777, 1, 2), (30000, 2, 32769),
+                     (1 << 20, 8, 16385)]:
+        nb, rows = cat_hist.bucket_chunks(n, T, L1)
+        assert rows % 32 == 0 and nb * rows >= n > (nb - 1) * rows
+        assert nb == 1 or nb * T * L1 <= cat_hist.BUCKET_CELLS
+
+
+@pytest.mark.parametrize("L1,V,S,task", [
+    (513, 10000, 2, "classification"), (2, 10000, 2, "classification"),
+    (65, 700, 2, "classification"), (9, 37, 3, "classification"),
+    (513, 10000, 3, "regression"), (9, 10000, 16, "classification"),
+    (16385, 2, 2, "classification")])
+def test_tile_plan_fits_shared_memory_and_covers_the_table(L1, V, S, task):
+    budget = cat_hist.SMEM_BUDGET
+    plan = cat_hist.tile_plan(L1, V, S, task, budget)
+    cell = S * 4 if task == "classification" else 24
+    nh = min(plan.LT, L1)
+    pad = lambda b: -(-b // 16) * 16            # csrc tile_smem_bytes
+    assert pad(nh * plan.CT * cell) + pad((nh + 1) * 4) <= budget
+    assert plan.nCT * plan.CT >= V > (plan.nCT - 1) * plan.CT
+    assert plan.nLT * plan.LT >= L1 > (plan.nLT - 1) * plan.LT
+    assert plan.LT == 1 or plan.nCT == 1
+
+
+def _emulate_cat_tiles(x, leaf, w, y, L1, V, S, task, budget, min_piece,
+                       target=64):
+    """The tile kernel's plan, work items and flush rules in torch: every
+    block builds its tile from its rows and stores it, or adds it into the
+    region `zero_split_tiles` cleared.  Unwritten cells stay NaN."""
+    T, n = leaf.shape
+    m = x.shape[0]
+    plan = cat_hist.tile_plan(L1, V, S, task, budget)
+    lstart = None
+    if not plan.natural:
+        rows, wl, yl, lstart, _ = cat_hist.leaf_buckets(leaf, w, y, L1)
+    work = cat_hist.tile_work(lstart, plan, n, T, target=target,
+                              min_piece=min_piece)
+    out = torch.full((T, m, L1, V, S), float("nan"))
+    cat_hist.zero_split_tiles(out, work, plan)
+    stats = torch.from_numpy(np.asarray(
+        [np.eye(S, dtype=np.float32)[int(c)] if 0 <= c < S else
+         np.zeros(S, np.float32) for c in y.numpy()]))          # (n, S)
+    for t, lt, k0, k1, atomic in work.tolist():
+        if t < 0:                               # past the last item
+            continue
+        h0, h1 = lt * plan.LT, min(L1, (lt + 1) * plan.LT)
+        if plan.natural:
+            r = torch.arange(k0, k1)
+            h = leaf[t, r].long()
+            keep = (w[t, r] > 0) & (h > 0) & (h < L1)
+            r, h = r[keep], h[keep]
+            wr = w[t, r]
+        else:
+            k = torch.arange(k0, k1)
+            r = rows[t, k].long()
+            wr = wl[t, k]
+            h = torch.searchsorted(lstart[t].long(), k, right=True) - 1
+        for ct in range(plan.nCT):
+            c0, c1 = ct * plan.CT, min(V, (ct + 1) * plan.CT)
+            for j in range(m):
+                v = x[j, r].long()
+                sel = (v >= c0) & (v < c1)
+                tile = torch.zeros((h1 - h0, c1 - c0, S))
+                tile.index_put_((h[sel] - h0, v[sel] - c0),
+                                stats[r[sel]] * wr[sel, None], accumulate=True)
+                if atomic:
+                    out[t, j, h0:h1, c0:c1] += tile
+                else:
+                    out[t, j, h0:h1, c0:c1] = tile
+    return out, work
+
+
+@pytest.mark.parametrize("L1,V,budget,min_piece,target", [
+    (9, 13, 100 * 1024, 64, 64),     # whole table per block, natural rows
+    (9, 13, 100 * 1024, 10**6, 64),  # ... one block per tree: stored whole
+    (6, 300, 5000, 64, 64),          # leaf tiles of 2, bucketed, some split
+    (5, 300, 1000, 100, 512),        # category tiles of one leaf
+])
+def test_cat_tile_plan_and_work_rebuild_the_plain_tables(L1, V, budget,
+                                                         min_piece, target):
+    """Every cell is written by exactly one block or summed from the
+    blocks of a split tile into a zeroed region: the emulated tiles equal
+    the plain tables bit for bit."""
+    x, leaf, w, y = _cat_case(V, n=1500, m=3, L=L1 - 1, C=2, T=2, seed=3)
+    args = [torch.as_tensor(a) for a in (x, leaf, w, y)]
+    got, work = _emulate_cat_tiles(*args, L1, V, 2, "classification",
+                                   budget, min_piece, target)
+    want = cat_hist.cat_hist_plain(*args, L1=L1, V=V, num_stats=2)
+    np.testing.assert_array_equal(got.numpy(), want.numpy())
+    if min_piece < 10**6:
+        assert bool((work[:, 4] == 1).any())    # some tile was split
+    used = int((work[:, 0] >= 0).sum())
+    assert bool((work[used:, 0] == -1).all())   # padding only at the end
 
 
 # ---------------------------------------------------------------------------
@@ -458,3 +603,198 @@ def test_hist_fit_on_card_launches_kernels_on_any_backend(cuda, backend):
         for k in ("feature", "threshold", "is_cat", "cat_mask", "children",
                   "value"):
             np.testing.assert_array_equal(getattr(b, k), getattr(a, k))
+
+
+def _warp_case(name):
+    """Presorted inputs whose warp steps hold the named pattern (binary
+    labels; one tree)."""
+    rng = np.random.default_rng(7)
+    n, L, min_records = 4000, 1, 1.0
+    num = rng.normal(size=(n, 2)).astype(np.float32)
+    y = rng.integers(0, 2, n).astype(np.int32)
+    w = np.ones(n, np.float32)
+    leaf = np.ones(n, np.int32)                # every row in one leaf
+    if name == "ties":                          # equal values in a group
+        num = np.round(num * 2) / 2
+        w = rng.integers(0, 3, n).astype(np.float32)
+    elif name == "equal_gains":                 # period-2 labels, 1 leaf
+        num = np.stack([np.arange(n), np.arange(n)[::-1]], 1).astype(
+            np.float32)
+        y = (np.arange(n) % 2).astype(np.int32)
+    elif name == "min_records":                 # crossing inside a step
+        n = 150
+        num, y, w, leaf = num[:n], y[:n], w[:n], leaf[:n]
+        min_records = 45.0
+    elif name == "alternating":                 # leaves alternate by row
+        L = 2
+    elif name in ("L2", "L513"):
+        L = 1 if name == "L2" else 512
+        n = 50000
+        num = np.round(rng.normal(size=(n, 2)) * 8).astype(np.float32) / 8
+        y = rng.integers(0, 2, n).astype(np.int32)
+        w = rng.integers(0, 3, n).astype(np.float32)
+        leaf = rng.integers(0, L + 1, n).astype(np.int32)
+    si = np.argsort(num.T, axis=-1, kind="stable").astype(np.int32)
+    sv = np.take_along_axis(num.T, si, -1)
+    if name == "alternating":                   # in column 0's sorted order
+        leaf[si[0]] = 1 + np.arange(n) % 2
+    cand = np.ones((2, L + 1), bool)
+    cand[:, 0] = False
+    return sv, si, leaf, w, y, cand, L, min_records
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("name", ["one_leaf", "ties", "equal_gains",
+                                  "min_records", "alternating", "L2",
+                                  "L513"])
+def test_split_scan_cuda_warp_groups(cuda, name):
+    """The warp-parallel scan on the patterns its lane groups must get
+    right: 32+ consecutive rows of one leaf, equal values inside a group
+    (a threshold only on a strictly larger value), equal gains inside a
+    group (the first row wins), min_records crossed inside a group,
+    alternating leaves, and L1 = 2 and 513.  Binary gini: bit-equal to
+    the plain version."""
+    sv, si, leaf, w, y, cand, L, mr = _warp_case(name)
+    args = (sv, si, leaf, w, y, cand, L, 2, "gini", "classification")
+    g, t = _port(*args, device=cuda, min_records=mr)
+    g_p, t_p = _port(*args, min_records=mr)
+    assert np.isfinite(g_p.numpy()).any()
+    np.testing.assert_array_equal(g.cpu().numpy(), g_p.numpy())
+    np.testing.assert_array_equal(t.cpu().numpy(), t_p.numpy())
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("task", ["classification", "regression"])
+def test_split_scan_cuda_is_deterministic(cuda, task):
+    """Two launches on the same inputs give the same bits (3 classes or
+    regression, where the sums are floats taken in row order)."""
+    C = 3
+    sv, si, leaf, w, y, cand = _mk(9, 30000, 3, 40, C, dup=True, task=task)
+    imp = "gini" if task == "classification" else "variance"
+    args = (sv, si, leaf, w, y, cand, 40, C, imp, task)
+    g1, t1 = _port(*args, device=cuda)
+    g2, t2 = _port(*args, device=cuda)
+    assert torch.equal(g1, g2) and torch.equal(t1, t2)
+    g_p, _ = _port(*args)
+    fin = np.isfinite(g_p.numpy())
+    np.testing.assert_array_equal(np.isfinite(g1.cpu().numpy()), fin)
+    from repro_torch.core import splits
+    S = C if task == "classification" else 3
+    stats = splits.row_stats(torch.as_tensor(y.astype(np.float32)),
+                             torch.as_tensor(w), S, task)
+    tot = torch.zeros((41, S)).index_add_(
+        0, torch.as_tensor(leaf).long(),
+        torch.where(torch.as_tensor(w > 0)[:, None], stats, 0.0))
+    scale = tot.abs().max().item()          # as the kernel's docstring
+    assert np.abs(g1.cpu().numpy()[fin] - g_p.numpy()[fin]).max() <= \
+        1e-6 * scale
+
+
+def _cat_card_case(arities, n, L1, T, task, seed, big_leaf=False):
+    rng = np.random.default_rng(seed)
+    x = np.stack([rng.integers(0, a, n) for a in arities]).astype(np.int32)
+    leaf = rng.integers(0, L1, (T, n)).astype(np.int32)
+    if big_leaf:                                  # half the rows in leaf 1
+        leaf[:, : n // 2] = 1
+    w = rng.integers(0, 3, (T, n)).astype(np.float32)
+    y = (rng.integers(0, 2, n).astype(np.float32) if task == "classification"
+         else (rng.normal(size=n) * 3 + 1).astype(np.float32))
+    return [torch.as_tensor(a) for a in (x, leaf, w, y)]
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("arities,n,L1,T,task,big_leaf", [
+    ((2, 700, 10000), 60000, 65, 2, "classification", False),  # mixed
+    ((2, 700, 10000), 200000, 2, 2, "classification", False),  # one leaf
+    ((2, 700, 10000), 100000, 513, 2, "classification", True),  # split
+    ((3, 10000), 60000, 3, 2, "regression", False),   # V % CT != 0
+    ((5, 10000), 100000, 513, 2, "regression", True),  # split, regression
+    ((9, 31), 30000, 9, 10, "classification", False),  # T > MAXT, natural
+])
+def test_cat_hist_cuda_tiles(cuda, arities, n, L1, T, task, big_leaf):
+    """The tiled kernel at the edges of its plan: arities 2 to 10,000 in
+    one call, L1 = 2 with every open row in one leaf, L1 = 513 with a
+    leaf whose rows span several blocks, category tiles that do not
+    divide V (regression), more trees than one launch takes.
+    Classification equals the plain tables bit for bit; regression
+    repeats bit for bit and is within 1e-4 of Σ|stat| per cell."""
+    args = _cat_card_case(arities, n, L1, T, task, seed=n + L1,
+                          big_leaf=big_leaf)
+    V = max(arities)
+    S = 2 if task == "classification" else 3
+    kw = dict(L1=L1, V=V, num_stats=S, task=task)
+    dev = [a.to(cuda) for a in args]
+    got = cat_hist.cat_hist(*dev, **kw)
+    plain = cat_hist.cat_hist_plain(*dev, **kw)
+    if task == "classification":
+        assert torch.equal(got, plain)
+    else:
+        again = cat_hist.cat_hist(*dev, **kw)
+        assert torch.equal(got, again)
+        mag = cat_hist.cat_hist_plain(dev[0], dev[1], dev[2], dev[3].abs(),
+                                      **kw)
+        assert bool(((got - plain).abs() <= 1e-4 * mag + 1e-6).all())
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("L1,classes", [(2, 0), (513, 0), (16385, 0),
+                                        (513, 2)])
+def test_leaf_buckets_cuda_equal_plain(cuda, L1, classes):
+    """The bucketing kernels write the plain version's lists (a stable
+    sort by leaf) and offsets, in shared memory and past it, and with the
+    class packed into the row word."""
+    rng = np.random.default_rng(L1)
+    T, n = 3, 100000
+    leaf = torch.as_tensor(rng.integers(0, L1 + 2, (T, n)).astype(np.int32))
+    w = torch.as_tensor(rng.integers(0, 3, (T, n)).astype(np.float32))
+    y = torch.as_tensor((rng.normal(size=n) * 2).astype(np.float32))
+    want = cat_hist.leaf_buckets_plain(leaf, w, y, L1, classes)
+    got = cat_hist.leaf_buckets(leaf.to(cuda), w.to(cuda), y.to(cuda), L1,
+                                classes)
+    ls = want.lstart
+    assert torch.equal(got.lstart.cpu(), ls)
+    # integer weights below (2^32 - 1) / n: integer counts are allowed
+    assert int(got.odd) == 0
+    for t in range(T):
+        k = int(ls[t, -1])
+        for a, b in zip(got[:3], want[:3]):
+            assert (a is None) == (b is None)
+            if a is not None:
+                assert torch.equal(a[t, :k].cpu(), b[t, :k])
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("L1,V", [(9, 10000), (513, 10000), (65, 700),
+                                  (9, 13)])
+def test_cat_plan_cuda_equals_tile_work(cuda, L1, V):
+    """The device planner writes `tile_work`'s items, padding included."""
+    rng = np.random.default_rng(L1 + V)
+    T, n = 2, 300000
+    leaf = rng.integers(0, L1, (T, n)).astype(np.int32)
+    leaf[:, : n // 3] = 1                        # one large leaf
+    w = rng.integers(0, 3, (T, n)).astype(np.float32)
+    y = rng.integers(0, 2, n).astype(np.float32)
+    args = [torch.as_tensor(a) for a in (leaf, w, y)]
+    plan = cat_hist.tile_plan(L1, V, 2)
+    lstart = None
+    if not plan.natural:
+        lstart = cat_hist.leaf_buckets_plain(*args, L1).lstart
+    kw = dict(min_piece=4096, device=cuda)
+    want = cat_hist.tile_work(lstart, plan, n, T, **dict(kw, device=None))
+    got = cat_hist.tile_work(None if lstart is None else lstart.to(cuda),
+                             plan, n, T, **kw)
+    assert bool((want[:, 4] == 1).any())
+    assert torch.equal(got.cpu(), want)
+
+
+@pytest.mark.gpu
+def test_cat_hist_cuda_fractional_weights(cuda):
+    """Weights that are not integers take the float-atomic tables instead
+    of integer counts: halves sum exactly, so still bit-equal to plain."""
+    args = _cat_card_case((2, 700, 10000), 60000, 65, 2, "classification",
+                          seed=5)
+    args[2] = args[2] * 0.5 + 0.5 * (args[2] > 0)    # 0, 1, 1.5
+    dev = [a.to(cuda) for a in args]
+    kw = dict(L1=65, V=10000, num_stats=2)
+    assert torch.equal(cat_hist.cat_hist(*dev, **kw),
+                       cat_hist.cat_hist_plain(*dev, **kw))
