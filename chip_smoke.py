@@ -45,6 +45,7 @@ last `{"ok": true, "device": {...}}`.  Exits non-zero without a GPU.
 from __future__ import annotations
 
 import argparse
+import hashlib
 import json
 import subprocess
 import sys
@@ -99,6 +100,31 @@ def host_ms(fn, runs: int = TIMED_RUNS) -> float:
     host = (time.perf_counter() - t0) / runs * 1e3
     torch.cuda.synchronize()
     return host
+
+
+def sass_atomics(lib_path: Path) -> dict:
+    """The atomic SASS instructions of each kernel in a built library, by
+    op (`cuobjdump -sass`): ATOMS.* act on shared memory (ATOMS.ADD is a
+    native integer add, ATOMS.CAST.SPIN a compare-and-swap loop), RED.* /
+    ATOMG.* on device memory.  Empty where the toolkit has no cuobjdump."""
+    import collections
+    import re
+    import shutil
+    tool = shutil.which("cuobjdump") or "/usr/local/cuda/bin/cuobjdump"
+    if not Path(tool).exists():
+        return {}
+    text = subprocess.run([tool, "-sass", str(lib_path)], capture_output=True,
+                          text=True).stdout
+    out, fn = {}, None
+    for line in text.splitlines():
+        found = re.search(r"Function : (\S+)", line)
+        if found:
+            fn = found.group(1)
+            continue
+        for op in re.findall(r"\b((?:ATOMS|ATOMG|ATOM|RED)\.[A-Z0-9_.]+)",
+                             line):
+            out.setdefault(fn, collections.Counter())[op] += 1
+    return {k: dict(v) for k, v in out.items()}
 
 
 def bound_ms(nbytes: float, flops: float) -> tuple[float, str]:
@@ -340,6 +366,8 @@ def check_feat_hist(args, dev, g, n, T, m, W, B, bin_dtype, task, timed,
             fail(f"{name}: max err {err}")
     row = dict(n=n, T=T, m=m, W=W, B=B, bins=str(x.dtype)[6:], task=task,
                max_abs_err=err, bit_equal=task == "classification")
+    if task == "regression":
+        row["sha256"] = hashlib.sha256(tk.cpu().numpy().tobytes()).hexdigest()
     del tk, tp
     if timed:
         row["ms"] = cuda_ms(lambda: fh.feat_hist(x, slot, w, y, **kw))
@@ -644,38 +672,64 @@ def exact_main_levels(args, dev, ds):
     return dict(levels=rows, **out)
 
 
-def feat_hist_main_shapes(args, dev, ds):
-    """feat_hist at the shapes and on the data that fit (b) gives it:
+def regression_target(ds):
+    """A regression target on the majority rows, for holding feat_hist's
+    fixed-point tables at the fit's real shapes: 3·x0 + x1 (float32)."""
+    import numpy as np
+    return (3 * ds.num[:, 0] + ds.num[:, 1]).astype(np.float32)
+
+
+def feat_hist_main_shapes(args, dev, ds, label="(b)"):
+    """feat_hist at the shapes and on the data that fit (b) gives it (or
+    another hist fit of `ds`, named `label`):
     each level's real bin cache (uint8, B = 255), bag weights and scatter
     slots (raw leaf ids at the root, packed build slots under subtraction
-    below it), captured from one tree batch of that fit.  The kernel is
-    timed at every level; at the root and at the deepest level it is also
-    held against its plain version and timed beside it, the library call
-    and the bound.  The deepest level's numbers go into the kernels line."""
+    below it), captured from one tree batch of that fit.  At every level
+    the kernel is held bit-equal to its plain version and timed beside
+    its bound; the same level's regression table (target
+    `regression_target`) must repeat bit for bit and agree with the plain
+    version, and its sha256 is kept (two trees' kernels give the same
+    hash when their tables are bit-equal).  At the root and at the
+    deepest level the plain version and the library call are timed too;
+    the deepest level's numbers go into the kernels line."""
     import torch
+    from repro_torch.kernels import feat_hist as fh
     levels = capture_feat_hist_levels(args, ds)
+    y_reg = torch.as_tensor(regression_target(ds), device=dev)
     rows = []
     for depth, lv in enumerate(levels):
         ins = (lv["x"], lv["slot"], lv["w"], lv["y"])
         T, n = lv["slot"].shape
         m = lv["x"].shape[0]
-        if depth in (0, len(levels) - 1):
-            r = check_feat_hist(args, dev, None, n, T, m, lv["W"], lv["B"],
-                                lv["x"].dtype, lv["task"], True, inputs=ins)
-        else:
-            from repro_torch.kernels import feat_hist as fh
-            kw = dict(W=lv["W"], B=lv["B"], num_stats=lv["S"],
-                      task=lv["task"])
-            r = dict(ms=cuda_ms(lambda: fh.feat_hist(*ins, **kw)))
+        kw = dict(W=lv["W"], B=lv["B"], num_stats=lv["S"], task=lv["task"])
+        edge = depth in (0, len(levels) - 1)
+        r = check_feat_hist(args, dev, None, n, T, m, lv["W"], lv["B"],
+                            lv["x"].dtype, lv["task"], edge, inputs=ins)
+        if not edge:
+            r["ms"] = cuda_ms(lambda: fh.feat_hist(*ins, **kw))
+            adds = ((lv["slot"] > 0) & (lv["w"] > 0)).sum().item() * m
+            r["bound_ms"], r["bound_by"] = bound_ms(
+                fh.bound_bytes(T, m, n, lv["W"], lv["B"], lv["S"],
+                               lv["x"].element_size()), adds)
+        reg_ins = ins[:3] + (y_reg,)
+        reg = check_feat_hist(args, dev, None, n, T, m, lv["W"], lv["B"],
+                              lv["x"].dtype, "regression", False,
+                              inputs=reg_ins)
         r.update(depth=depth, W=lv["W"], rows_in_slots=int(
-            ((lv["slot"] > 0) & (lv["w"] > 0)).sum().item()))
-        log(f"  feat_hist fit (b) level {json.dumps(r)}")
+            ((lv["slot"] > 0) & (lv["w"] > 0)).sum().item()),
+            host_ms=host_ms(lambda: fh.feat_hist(*ins, **kw)),
+            kernels=kernel_split(lambda: fh.feat_hist(*ins, **kw)),
+            regression_ms=cuda_ms(lambda: fh.feat_hist(
+                *reg_ins, **dict(kw, num_stats=3, task="regression"))),
+            regression_sha256=reg["sha256"])
+        log(f"  feat_hist fit {label} level {json.dumps(r)}")
         rows.append(r)
     deepest = rows[-1]
     total = sum(r["ms"] for r in rows)
     log(f"  feat_hist over the {len(rows)} levels of one tree batch of fit "
-        f"(b): {total:.3f} ms (root {rows[0]['ms']:.3f} ms, deepest "
-        f"{deepest['ms']:.3f} ms)")
+        f"{label}, bit-equal to plain at each: {total:.3f} ms (bound "
+        f"{sum(r['bound_ms'] for r in rows):.3f} ms; root "
+        f"{rows[0]['ms']:.3f} ms, deepest {deepest['ms']:.3f} ms)")
     del levels
     torch.cuda.empty_cache()
     return dict(shape=dict(n=ds.n, T=TREE_BATCH, m=ds.m_num, W=deepest["W"],
@@ -686,9 +740,52 @@ def feat_hist_main_shapes(args, dev, ds):
                           library_ms=rows[0]["library_ms"],
                           bound_ms=rows[0]["bound_ms"]),
                 levels_ms=total,
+                levels=[{k: r[k] for k in ("depth", "W", "rows_in_slots",
+                                           "ms", "host_ms", "kernels",
+                                           "bound_ms", "regression_ms",
+                                           "regression_sha256")}
+                        for r in rows],
                 **{k: deepest[k] for k in ("max_abs_err", "ms", "plain_ms",
                                            "bound_ms", "bound_by",
                                            "library_ms")})
+
+
+def parent_feat_hist_levels(args, parent: Path) -> dict:
+    """The parent tree's feat_hist on the same levels: this script run in
+    a subprocess against `parent`/src with --hist-levels, its per-level
+    rows (by fit) read back from a JSON file."""
+    out = ROOT / "build" / "repro_torch" / "parent_hist_levels.json"
+    out.parent.mkdir(parents=True, exist_ok=True)
+    cmd = [sys.executable, str(Path(__file__).resolve()), "--hist-levels",
+           "--src", str(parent / "src"), "--levels-json", str(out),
+           "--seed", str(args.seed), "--train-log2n", str(args.train_log2n),
+           "--depth", str(args.depth)]
+    log(f"  the parent's feat_hist ({parent / 'src'}), in a subprocess")
+    proc = subprocess.run(cmd, capture_output=True, text=True)
+    for line in proc.stdout.splitlines():
+        if "level" in line or "built" in line:
+            log(f"  [parent] {line.strip()}")
+    if proc.returncode != 0:
+        fail(f"the parent's per-level run failed:\n{proc.stderr[-4000:]}")
+    return json.loads(out.read_text())
+
+
+def compare_hist_levels(new: list, old: list, label: str) -> None:
+    """Per-level times of this tree's feat_hist beside the parent's, and
+    their regression tables' hashes, which must be equal."""
+    log(f"  fit {label}, this tree beside the parent:")
+    log("  depth  W  rows_in_slots  ms  parent_ms  bound_ms  regression_ms "
+        " parent_regression_ms  regression bit-equal")
+    for a, b in zip(new, old):
+        same = a["regression_sha256"] == b["regression_sha256"]
+        log(f"  {a['depth']} {a['W']} {a['rows_in_slots']} {a['ms']:.4f} "
+            f"{b['ms']:.4f} {a['bound_ms']:.4f} {a['regression_ms']:.4f} "
+            f"{b.get('regression_ms', float('nan')):.4f} {same}")
+        if not same:
+            fail(f"feat_hist regression tables of fit {label} at depth "
+                 f"{a['depth']} differ from the parent kernel's")
+    log(f"  sum {sum(a['ms'] for a in new):.3f} ms, parent "
+        f"{sum(b['ms'] for b in old):.3f} ms")
 
 
 def phase2_main_shapes(args, dev, ds):
@@ -1017,11 +1114,23 @@ def main() -> int:
     ap.add_argument("--exact-levels", action="store_true",
                     help="build, then only the per-level kernel checks and "
                          "times on the exact fit's inputs (development)")
+    ap.add_argument("--hist-levels", action="store_true",
+                    help="build, then only feat_hist on the inputs of every "
+                         "level of fit (b) (development)")
+    ap.add_argument("--parent", type=Path, default=None,
+                    help="with --hist-levels: a directory holding the parent "
+                         "tree's src/, whose feat_hist is run on the same "
+                         "levels first and printed beside this tree's")
+    ap.add_argument("--src", type=Path, default=None,
+                    help="the src/ whose repro_torch to drive (default: the "
+                         "one beside this script)")
+    ap.add_argument("--levels-json", type=Path, default=None,
+                    help=argparse.SUPPRESS)
     ap.add_argument("--profile", action="store_true",
                     help="profile the repeat fit: device time per part")
     args = ap.parse_args()
 
-    src = ROOT / "src"
+    src = (args.src or ROOT / "src").resolve()
     if not (src / "repro_torch").is_dir():
         print("chip_smoke: src/repro_torch not found beside this script",
               file=sys.stderr)
@@ -1053,14 +1162,33 @@ def main() -> int:
         for line in _build.compiler_report(name).splitlines():
             if "registers" in line or "spill" in line:
                 log(f"    {name}: {line.strip()}")
+        for fn, ops in sass_atomics(_build.library_path(name)).items():
+            log(f"    {name} SASS atomics {fn}: {json.dumps(ops)}")
 
     log("phase 2: kernels against their plain versions")
     n_all = (1 << args.train_log2n) + TEST_ROWS
     cut = 1 << args.train_log2n
     from repro_torch.core.dataset import from_numpy
-    if not args.exact_levels:
+    if not (args.exact_levels or args.hist_levels):
         phase2(args, dev)
         deep_fit(args, dev)
+    if args.hist_levels:
+        old = (parent_feat_hist_levels(args, args.parent.resolve())
+               if args.parent else None)
+        maj = majority_dataset(args.seed, n_all)
+        got = {"(b)": feat_hist_main_shapes(args, dev, from_numpy(
+            maj.num[:cut], None, maj.labels[:cut]))["levels"]}
+        del maj
+        num, cat, y, arities = leo_dataset(args.seed, n_all)
+        got["(a)"] = feat_hist_main_shapes(
+            args, dev, from_numpy(num[:cut], cat[:cut], y[:cut], arities),
+            "(a)")["levels"]
+        del num, cat, y
+        if args.levels_json:
+            args.levels_json.write_text(json.dumps(got))
+        for label in got if old else ():
+            compare_hist_levels(got[label], old[label], label)
+        return 0
     t0 = time.perf_counter()
     num, cat, y, arities = leo_dataset(args.seed, n_all)
     if args.exact_levels:

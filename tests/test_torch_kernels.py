@@ -17,7 +17,7 @@ import numpy as np
 import pytest
 import torch
 
-from repro_torch.kernels import cat_hist, ops, split_scan
+from repro_torch.kernels import cat_hist, feat_hist, ops, split_scan
 from test_torch_harness import reference
 
 SWEEP = [
@@ -385,6 +385,112 @@ def test_cat_tile_plan_and_work_rebuild_the_plain_tables(L1, V, budget,
     assert bool((work[used:, 0] == -1).all())   # padding only at the end
 
 
+@pytest.mark.parametrize("T,m,n,W,B,S,task,shared", [
+    (2, 16, 1 << 23, 9, 255, 2, "classification", True),    # root
+    (2, 16, 1 << 23, 5, 255, 2, "classification", True),    # depths 1-3
+    (2, 16, 1 << 23, 33, 255, 2, "classification", True),
+    (2, 16, 1 << 23, 65, 255, 2, "classification", True),   # one column
+    (2, 16, 1 << 23, 129, 255, 2, "classification", False),  # too wide
+    (2, 3, 1 << 23, 9, 255, 2, "classification", True),     # leo-hist
+    (2, 3, 1 << 23, 17, 255, 2, "classification", False),   # wide, m = 3
+    (8, 8, 1 << 20, 9, 1024, 2, "classification", True),    # uint16 bins
+    (8, 3, 1 << 20, 9, 1024, 2, "classification", False),
+    (2, 8, 1 << 20, 65, 1024, 2, "classification", False),
+    (2, 16, 1 << 23, 9, 255, 3, "regression", True),
+    (2, 16, 1 << 23, 17, 255, 3, "regression", True),
+    (2, 16, 1 << 23, 65, 255, 3, "regression", False),
+    (1, 4, 777, 1, 255, 2, "classification", True),         # no slots
+    (3, 5, 777, 9, 255, 2, "classification", True),         # tiny n
+])
+def test_hist_plan_fits_shared_memory_and_covers_every_cell(T, m, n, W, B,
+                                                            S, task, shared):
+    """The path follows one column's table size, the table's width and
+    the number of columns; a shared plan fits a block's shared memory,
+    covers every (tree, column, row) once, has fewer than 2^16 cells a
+    table (the packed row word's offset) and makes at most one wave of
+    blocks (one per SM), each of at least MIN_ROWS rows unless n is
+    smaller."""
+    plan = feat_hist.hist_plan(T, m, n, W, B, S, task)
+    col = feat_hist.column_bytes(W, B, S, task)
+    assert plan.shared == shared
+    if not shared:
+        assert col > feat_hist.SMEM_OPTIN or (
+            task == "classification" and m < feat_hist.MANY_COLUMNS
+            and (W - 1) * B * S > feat_hist.CONTENDED_CELLS)
+        return
+    assert plan.smem % 16 == 0 and plan.G * col <= plan.smem
+    assert plan.smem <= feat_hist.SMEM_OPTIN
+    assert col // (4 if task == "classification" else 8) < 2**16
+    assert plan.nG * plan.G >= m > (plan.nG - 1) * plan.G
+    assert plan.nR * plan.R >= n > (plan.nR - 1) * plan.R
+    assert plan.R % 32 == 0
+    assert T * plan.nG * plan.nR <= max(T * plan.nG, feat_hist.SM_COUNT)
+    assert plan.nR == 1 or plan.R >= feat_hist.MIN_ROWS - 32
+
+
+def _feat_plain_case(seed, T, m, n, W, B, frac=False, root=False):
+    rng = np.random.default_rng(seed)
+    x = rng.integers(0, B, size=(m, n)).astype(np.uint8 if B <= 256
+                                                 else np.uint16)
+    slot = (np.ones((T, n)) if root else rng.integers(0, W, (T, n)))
+    w = rng.integers(0, 4, (T, n)).astype(np.float32)
+    if frac:
+        w = w * 0.5                                  # 0, .5, 1, 1.5
+    y = rng.integers(-1, 3, n).astype(np.float32)    # some out of [0, 2)
+    return [torch.as_tensor(a) for a in (x, slot.astype(np.int32), w, y)]
+
+
+def _emulate_feat_hist(x, slot, w, y, W, B, S, plan):
+    """The shared path's plan and flush in torch: every block (tree,
+    column group, row range) builds its columns' tables from its own rows
+    (integer counts when every weight is an integer no larger than
+    count_wmax and 65535, else float32) and adds them into a zeroed
+    output, slots 1..W-1 only."""
+    T, n = slot.shape
+    m = x.shape[0]
+    wmax = min(cat_hist.count_wmax(n), 65535.0)
+    counts = bool(((w <= 0) | ((w == w.round()) & (w <= wmax))).all())
+    out = torch.zeros((T, m, W, B, S))
+    for t in range(T):
+        for g in range(plan.nG):
+            for rr in range(plan.nR):
+                r = torch.arange(rr * plan.R, min(n, (rr + 1) * plan.R))
+                sl, wr, cls = slot[t, r].long(), w[t, r], y[r].long()
+                keep = (sl > 0) & (sl < W) & (wr > 0) & (cls >= 0) & (cls < S)
+                r, sl, wr, cls = r[keep], sl[keep], wr[keep], cls[keep]
+                for j in range(g * plan.G, min(m, (g + 1) * plan.G)):
+                    b = x[j, r].long()
+                    tbl = torch.zeros((W - 1, B, S), dtype=torch.int64
+                                      if counts else torch.float32)
+                    tbl.index_put_((sl - 1, b, cls), wr.to(tbl.dtype),
+                                   accumulate=True)
+                    out[t, j, 1:] += tbl.to(torch.float32)
+    return out
+
+
+@pytest.mark.parametrize("T,m,n,W,B,budget,frac,root", [
+    (2, 5, 3000, 5, 13, 900, False, False),   # groups of 2 and ranges
+    (2, 5, 3000, 5, 13, 900, True, False),    # fractional: float tables
+    (3, 4, 2500, 9, 7, 10**6, False, True),   # root: one slot, one group
+    (1, 3, 1000, 3, 300, 5000, False, False),  # one column a block
+])
+def test_hist_plan_rebuilds_the_plain_tables(T, m, n, W, B, budget, frac,
+                                             root):
+    """Played out in torch, a shared plan's blocks rebuild
+    `feat_hist_plain`'s tables bit for bit: slot 0, w = 0 rows and labels
+    outside [0, S) add nothing, and every row reaches each of its
+    columns' tables once."""
+    args = _feat_plain_case(T + n, T, m, n, W, B, frac, root)
+    plan = feat_hist.hist_plan(T, m, n, W, B, 2, budget=budget, sms=16,
+                               min_rows=256)
+    assert plan.shared and plan.nR > 1
+    if budget < 10**6:
+        assert plan.nG > 1
+    got = _emulate_feat_hist(*args, W, B, 2, plan)
+    want = feat_hist.feat_hist_plain(*args, W=W, B=B, num_stats=2)
+    np.testing.assert_array_equal(got.numpy(), want.numpy())
+
+
 # ---------------------------------------------------------------------------
 # CUDA legs: the kernel against its plain version on the card
 # ---------------------------------------------------------------------------
@@ -494,37 +600,66 @@ def test_regression_forest_on_card_matches_cpu(cuda):
         np.testing.assert_allclose(b.threshold, a.threshold, rtol=1e-6)
 
 
-def _feat_case(B, T, task, n=4000, m=3, W=9, seed=0):
+def _feat_case(B, T, task, n=4000, m=3, W=9, seed=0, root=False,
+               frac=False):
     rng = np.random.default_rng(seed)
     dt = np.uint8 if B <= 256 else np.uint16
     x = rng.integers(0, B, size=(m, n)).astype(dt)
-    slot = rng.integers(0, W, (T, n)).astype(np.int32)
+    slot = (np.ones((T, n)) if root else rng.integers(0, W, (T, n))).astype(
+        np.int32)
     w = rng.integers(0, 3, (T, n)).astype(np.float32)
+    if frac:
+        w = (w * 0.5 + 0.5 * (w > 0)).astype(np.float32)   # 0, 1, 1.5
     y = (rng.integers(0, 2, n).astype(np.float32) if task == "classification"
          else (rng.normal(size=n) * 3 + 1).astype(np.float32))
     return [torch.as_tensor(a) for a in (x, slot, w, y)]
 
 
 @pytest.mark.gpu
-@pytest.mark.parametrize("B", [255, 1024])
-@pytest.mark.parametrize("task", ["classification", "regression"])
-def test_feat_hist_cuda_matches_plain(cuda, B, task):
-    """uint8 and uint16 bins; a tree batch larger than one launch takes."""
-    from repro_torch.kernels import feat_hist
+@pytest.mark.parametrize("B,task,T,n,m,W,root,frac,shared", [
+    (255, "classification", 10, 4000, 3, 9, False, False, True),
+    (1024, "classification", 10, 4000, 3, 3, False, False, True),
+    (1024, "classification", 10, 4000, 3, 9, False, False, False),
+    (255, "classification", 2, 200000, 3, 33, False, False, False),
+    (255, "regression", 10, 4000, 3, 9, False, False, True),
+    (1024, "regression", 10, 4000, 3, 17, False, False, False),
+    (255, "classification", 2, 300000, 16, 9, True, False, True),   # root
+    (255, "classification", 2, 300000, 16, 257, False, False, False),
+    (1024, "classification", 2, 200000, 8, 65, False, False, False),
+    (255, "classification", 3, 200000, 16, 65, False, False, True),  # G = 1
+    (255, "classification", 2, 200000, 5, 9, False, True, True),  # w = 1.5
+    (255, "regression", 2, 300000, 16, 5, True, False, True),
+    (255, "regression", 2, 200000, 4, 257, False, False, False),
+])
+def test_feat_hist_cuda_matches_plain(cuda, B, task, T, n, m, W, root, frac,
+                                      shared):
+    """Both paths: uint8 and uint16 bins (B = 1024), a root-like input
+    (every row in slot 1), W past the shared-memory budget (one column a
+    block) and past a block's shared memory or with wide tables and few
+    columns (device path), fractional
+    weights (float tables), more trees than one launch takes (T = 10, two
+    tree groups).  Classification equals the plain tables bit for bit;
+    regression repeats bit for bit and is within 1e-4 of Σ|stat| per
+    cell."""
     S = 2 if task == "classification" else 3
-    args = _feat_case(B, 10, task)
-    kw = dict(W=9, B=B, num_stats=S, task=task)
-    plain = feat_hist.feat_hist(*args, **kw)
+    assert feat_hist.hist_plan(min(T, 8), m, n, W, B, S,
+                               task).shared == shared
+    args = _feat_case(B, T, task, n=n, m=m, W=W, seed=n + W, root=root,
+                      frac=frac)
+    kw = dict(W=W, B=B, num_stats=S, task=task)
+    dev = [a.to(cuda) for a in args]
+    plain = feat_hist.feat_hist_plain(*dev, **kw)
     before = feat_hist.launches
-    got = feat_hist.feat_hist(*[a.to(cuda) for a in args], **kw)
-    assert feat_hist.launches - before == 2
+    got = feat_hist.feat_hist(*dev, **kw)
+    assert feat_hist.launches - before == -(-T // 8)
     if task == "classification":
-        np.testing.assert_array_equal(got.cpu().numpy(), plain.numpy())
+        assert torch.equal(got, plain)
     else:
-        again = feat_hist.feat_hist(*[a.to(cuda) for a in args], **kw)
+        again = feat_hist.feat_hist(*dev, **kw)
         assert torch.equal(got, again)
-        np.testing.assert_allclose(got.cpu().numpy(), plain.numpy(),
-                                   rtol=1e-4, atol=1e-4)
+        mag = feat_hist.feat_hist_plain(dev[0], dev[1], dev[2],
+                                        dev[3].abs(), **kw)
+        assert bool(((got - plain).abs() <= 1e-4 * mag + 1e-6).all())
 
 
 @pytest.mark.gpu
