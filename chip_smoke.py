@@ -38,7 +38,20 @@ Phases, each fatal on failure:
      after, repeated and compared: (a) the Leo-shaped rows of phase 3
      (feat_hist + cat_hist; held-out AUC), (b) 2^23 rows of the paper's
      "majority" family, 6 informative + 10 useless numeric columns
-     (feat_hist alone; per-level times and table bytes).
+     (feat_hist alone; per-level times and table bytes);
+  6. the reference's default path, each fit with its counters set to 0
+     just before and read just after, repeated and compared: (a)
+     `TreeParams(max_depth=10)` (the `segment` backend, no split_scan
+     launch allowed; cat_hist must launch) on phase 3's rows, whose trees
+     must equal phase 3's kernel trees; (b) the same on phase 5's majority
+     rows, equal to phase 5's exact kernel fit; (c) pruned fits
+     (`prune_closed_frac=0.05`, `min_records=32768` so leaves close by
+     depth 8) of the Leo rows, exact segment and hist with subtraction,
+     that must drop rows and equal the unpruned fits; (d) multinomial bag
+     counts of 4 trees x 2^23 rows, card == CPU bit for bit, and a
+     multinomial fit; (e) the seed builder `build_tree_reference` on
+     2^18 Leo rows (depth 8) == that tree of `build_forest`; (f) (a)'s
+     feature importances.
 Prints a JSON line with every kernel's numbers, the nvidia-smi line, and
 last `{"ok": true, "device": {...}}`.  Exits non-zero without a GPU.
 """
@@ -60,6 +73,8 @@ TREES, TREE_BATCH = 4, 2         # the phase-3 and phase-5 forests
 TEST_ROWS = 1 << 20              # held-out rows for phases 4 and 5
 DEEP_L1 = 16385                  # split_scan past a block's shared memory
 HIST_BINS = 255                  # phase 5's bucket budget
+PRUNE_MIN, PRUNE_FRAC = 32768, 0.05  # phase 6 (c): min_records, prune trigger
+SEED_DEPTH = 8                   # phase 6 (e): the seed builder's depth
 
 
 def log(msg: str) -> None:
@@ -860,44 +875,70 @@ def same_trees(a, b) -> bool:
         for x, y in zip(a, b) for k in keys)
 
 
-def run_fit(args, ds, params, kernels, label, levels_of=None):
-    """Fit `TREES` trees through `RandomForest.fit` with the launch
-    counters of `kernels` (name -> module) set to 0 just before and read
-    just after; every one of them must have launched.  Peak device memory
-    must stay under 60 GiB, and a repeat fit (profiled with --profile)
-    must grow identical trees."""
+def batch_levels(rf, tree_batch, leaf_pad):
+    """Per tree batch and level: (depth, Lp, open leaves, rows, seconds,
+    table bytes) from the fit's LevelStats.  Lp is the batch's padded
+    frontier (the widest tree's), rows the rows the level scanned (fewer
+    after a prune)."""
+    from repro_torch.core import tree as tree_lib
+    out = []
+    for t0 in range(0, len(rf.trees), tree_batch):
+        logs = rf.level_stats[t0:t0 + tree_batch]
+        for s in logs[0]:
+            peers = [x for log in logs for x in log if x.depth == s.depth]
+            out.append(dict(
+                depth=s.depth, open=s.open_leaves,
+                Lp=tree_lib._pad_leaves(max(x.open_leaves for x in peers),
+                                        leaf_pad),
+                rows=s.rows_scanned // max(s.feature_passes, 1),
+                s=s.wall_seconds, table_bytes=s.hist_table_bytes))
+    return out
+
+
+def run_fit(args, ds, params, kernels, label, idle=None, num_trees=TREES):
+    """Fit `num_trees` trees through `RandomForest.fit` with the launch
+    counters of `kernels` and `idle` (name -> module) set to 0 just before
+    and read just after: every kernel of `kernels` must have launched, no
+    kernel of `idle`.  Peak device memory must stay under 60 GiB, and a
+    repeat fit (profiled with --profile) must grow identical trees."""
     import torch
     from repro_torch.core.forest import RandomForest
+    idle = idle or {}
 
     def fit():
-        return RandomForest(params, num_trees=TREES, seed=args.seed,
+        return RandomForest(params, num_trees=num_trees, seed=args.seed,
                             tree_batch=TREE_BATCH).fit(ds, collect_stats=True)
 
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
-    for mod in kernels.values():
+    for mod in (*kernels.values(), *idle.values()):
         mod.launches = 0
     t0 = time.perf_counter()
     rf = fit()
     torch.cuda.synchronize()
     fit_s = time.perf_counter() - t0
     launches = {name: mod.launches for name, mod in kernels.items()}
-    levels = [(s.depth, s.open_leaves, s.wall_seconds, s.hist_table_bytes)
-              for t in range(0, TREES, TREE_BATCH)
-              for s in rf.level_stats[t]]
+    idle_launches = {name: mod.launches for name, mod in idle.items()}
+    levels = batch_levels(rf, TREE_BATCH, params.leaf_pad)
     peak = torch.cuda.max_memory_allocated()
-    log(f"  {label} fit: {fit_s:.3f} s for {TREES} trees of depth <= "
+    log(f"  {label} fit: {fit_s:.3f} s for {num_trees} trees of depth <= "
         f"{params.max_depth} on n={ds.n} rows x {ds.m} columns "
         f"(tree_batch={TREE_BATCH})")
-    for depth, open_leaves, sec, tbytes in levels:
-        extra = f", table bytes {tbytes}" if tbytes else ""
-        log(f"    level depth={depth} open={open_leaves}: "
-            f"{sec * 1e3:.3f} ms{extra}")
+    for lv in levels:
+        extra = (f", table bytes {lv['table_bytes']}" if lv["table_bytes"]
+                 else "")
+        log(f"    level depth={lv['depth']} Lp={lv['Lp']} "
+            f"open={lv['open']} rows={lv['rows']}: "
+            f"{lv['s'] * 1e3:.3f} ms{extra}")
     log(f"  peak device memory: {peak / 2**30:.3f} GiB")
-    log(f"  launches: {json.dumps(launches)}")
+    log(f"  launches: {json.dumps(launches)}"
+        + (f"; not on this path: {json.dumps(idle_launches)}" if idle
+           else ""))
     log(f"  nodes per tree: {[t.num_nodes for t in rf.trees]}")
-    if min(launches.values()) <= 0:
+    if launches and min(launches.values()) <= 0:
         fail(f"{label}: a kernel of the path never launched: {launches}")
+    if any(idle_launches.values()):
+        fail(f"{label}: launched a kernel off its path: {idle_launches}")
     if peak > 60 * 2**30:
         fail(f"{label}: peak device memory {peak / 2**30:.1f} GiB passes "
              f"60 GiB")
@@ -906,12 +947,14 @@ def run_fit(args, ds, params, kernels, label, levels_of=None):
         again = profiled(fit, fit_s)
     else:
         again = fit()
-    log(f"  repeat {label} fit: {time.perf_counter() - t0:.3f} s")
+    torch.cuda.synchronize()
+    repeat_s = time.perf_counter() - t0
+    log(f"  repeat {label} fit: {repeat_s:.3f} s")
     if not same_trees(rf.trees, again.trees):
         fail(f"a repeat {label} fit grew different trees")
     log(f"  repeat {label} fit grew identical trees")
-    return rf, dict(fit_s=fit_s, levels=levels, peak_bytes=peak,
-                    launches=launches)
+    return rf, dict(fit_s=fit_s, repeat_s=repeat_s, levels=levels,
+                    peak_bytes=peak, launches=launches)
 
 
 def phase3(args, dev, ds):
@@ -925,7 +968,7 @@ def phase3(args, dev, ds):
 def phase5(args, dev, leo_train, leo_test, maj_train, maj_test):
     """Hist mode on the card, with subtraction: (a) the Leo-shaped rows,
     (b) the majority family.  An exact fit of the majority rows, once,
-    is the point of comparison for (b)."""
+    is the point of comparison for (b) and for phase 6 (b)."""
     from repro_torch.core import tree as tree_lib
     from repro_torch.kernels import cat_hist, feat_hist, split_scan
     params = hist_params(args)
@@ -948,15 +991,157 @@ def phase5(args, dev, leo_train, leo_test, maj_train, maj_test):
     from repro_torch.core.forest import RandomForest
     exact = tree_lib.TreeParams(max_depth=args.depth, backend="kernel")
     split_scan.launches = 0
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
     t0 = time.perf_counter()
     rf_e = RandomForest(exact, num_trees=TREES, seed=args.seed,
                         tree_batch=TREE_BATCH).fit(maj_train)
     torch.cuda.synchronize()
+    info_e = dict(fit_s=time.perf_counter() - t0,
+                  peak_bytes=torch.cuda.max_memory_allocated(),
+                  trees=rf_e.trees)
     log(f"  exact fit of the majority rows, for comparison: "
-        f"{time.perf_counter() - t0:.3f} s, held-out AUC "
+        f"{info_e['fit_s']:.3f} s, peak device memory "
+        f"{info_e['peak_bytes'] / 2**30:.3f} GiB, held-out AUC "
         f"{rf_e.auc(maj_test):.6f}, split_scan launches "
         f"{split_scan.launches}")
-    return info_a, info_b
+    return info_a, info_b, info_e
+
+
+# ---------------------------------------------------------------------------
+# Phase 6: the reference's default path (segment backend), pruning,
+# multinomial bagging, the seed builder, importances
+# ---------------------------------------------------------------------------
+
+def phase6(args, dev, leo_train, maj_train, leo_exact_trees, maj_exact):
+    """The reference's default exact path on the card, held against the
+    kernel fits of phases 3 and 5, and the options around it; see the
+    module docstring.  Returns what PERF.md records."""
+    import numpy as np
+    import torch
+    from repro_torch.core import bagging, presort, tree as tree_lib
+    from repro_torch.core.dataset import from_numpy
+    from repro_torch.core.reference import build_tree_reference
+    from repro_torch.kernels import cat_hist, feat_hist, split_scan
+    t_phase = time.perf_counter()
+    out = {}
+
+    # (a) TreeParams defaults but the depth: the segment backend on Leo
+    params = tree_lib.TreeParams(max_depth=args.depth)
+    rf_a, out["a"] = run_fit(args, leo_train, params, {"cat_hist": cat_hist},
+                             "default (a) Leo",
+                             idle={"split_scan": split_scan})
+    if not same_trees(rf_a.trees, leo_exact_trees):
+        fail("default (a): the segment trees differ from phase 3's kernel "
+             "trees")
+    log("  default (a): the segment trees equal phase 3's kernel trees")
+    imp = rf_a.feature_importances()
+    if imp.shape != (leo_train.m,) or not np.isfinite(imp).all() \
+            or abs(float(imp.sum()) - 1) > 1e-5:
+        fail(f"feature_importances: shape {imp.shape}, sum {imp.sum()}")
+    top = np.argsort(-imp, kind="stable")[:6]
+    out["importances_top"] = {int(j): float(imp[j]) for j in top}
+    log(f"  (f) feature_importances of (a), top 6 (column: MDI): "
+        f"{json.dumps(out['importances_top'])}; numeric columns "
+        f"{[round(float(x), 6) for x in imp[:leo_train.m_num]]}")
+    del rf_a
+
+    # (b) the segment engine at m = 16 on the majority rows
+    rf_b, out["b"] = run_fit(args, maj_train, params, {},
+                             "default (b) majority",
+                             idle={"split_scan": split_scan})
+    if not same_trees(rf_b.trees, maj_exact["trees"]):
+        fail("default (b): the segment trees differ from phase 5's exact "
+             "kernel trees")
+    log(f"  default (b): the segment trees equal phase 5's exact kernel "
+        f"trees; segment {out['b']['fit_s']:.3f} s, peak "
+        f"{out['b']['peak_bytes'] / 2**30:.3f} GiB beside kernel "
+        f"{maj_exact['fit_s']:.3f} s, peak "
+        f"{maj_exact['peak_bytes'] / 2**30:.3f} GiB")
+    del rf_b
+
+    # (c) pruning on the Leo rows: leaves of fewer than 2 * PRUNE_MIN in-bag
+    # rows close, so rows closed in both trees of the batch pile up by
+    # depth 7-8; pruned fits must equal the unpruned ones
+    for label, extra, kern in (
+            ("exact segment", {}, {"cat_hist": cat_hist}),
+            ("hist", dict(split_mode="hist", num_bins=HIST_BINS),
+             {"feat_hist": feat_hist, "cat_hist": cat_hist})):
+        fits = {}
+        for frac in (1.0, PRUNE_FRAC):
+            p = tree_lib.TreeParams(max_depth=args.depth,
+                                    min_records=PRUNE_MIN,
+                                    prune_closed_frac=frac, **extra)
+            fits[frac] = run_fit(args, leo_train, p, kern,
+                                 f"(c) {label}, prune_closed_frac={frac}",
+                                 num_trees=TREE_BATCH)
+        rows = [lv["rows"] for lv in fits[PRUNE_FRAC][1]["levels"]]
+        dropped = [a - b for a, b in zip(rows, rows[1:])]
+        log(f"  (c) {label}: rows per level {rows}, dropped before each "
+            f"next level {dropped}")
+        if not any(dropped):
+            fail(f"(c) {label}: no row was pruned")
+        if not same_trees(fits[1.0][0].trees, fits[PRUNE_FRAC][0].trees):
+            fail(f"(c) {label}: the pruned trees differ from the unpruned")
+        log(f"  (c) {label}: pruned trees equal the unpruned trees")
+        out[f"c {label}"] = dict(rows=rows, **{
+            f"frac={f}": {k: v for k, v in info.items() if k != "levels"}
+            for f, (_, info) in fits.items()})
+        del fits
+
+    # (d) multinomial bagging at 2^23: the card draws the CPU's counts
+    n = leo_train.n
+    t0 = time.perf_counter()
+    w_dev = bagging.bag_counts_forest(args.seed, range(TREES), n,
+                                      "multinomial", dev)
+    torch.cuda.synchronize()
+    dev_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    w_cpu = bagging.bag_counts_forest(args.seed, range(TREES), n,
+                                      "multinomial", "cpu")
+    cpu_s = time.perf_counter() - t0
+    if not torch.equal(w_dev.cpu(), w_cpu):
+        fail("(d) multinomial bag counts on the card differ from the CPU's")
+    if not bool((w_cpu.sum(1) == n).all()):
+        fail(f"(d) multinomial bag counts sum to {w_cpu.sum(1)}, not {n}")
+    log(f"  (d) multinomial bag counts of {TREES} trees x {n} rows: the "
+        f"card's equal the CPU's bit for bit and sum to n ({dev_s:.3f} s on "
+        f"the card, {cpu_s:.3f} s on the CPU); out-of-bag share "
+        f"{float((w_cpu == 0).float().mean()):.6f}")
+    del w_dev, w_cpu
+    _, out["d"] = run_fit(args, leo_train, tree_lib.TreeParams(
+        max_depth=args.depth, bagging="multinomial"), {"cat_hist": cat_hist},
+        "(d) multinomial Leo", idle={"split_scan": split_scan})
+
+    # (e) the seed builder on the card, one tree of a 2^18-row Leo slice
+    k = 1 << 18
+    small = from_numpy(leo_train.num[:k], leo_train.cat[:k],
+                       leo_train.labels[:k], leo_train.arities)
+    p = tree_lib.TreeParams(max_depth=SEED_DEPTH)
+    num = torch.as_tensor(small.num, device=dev)
+    si = presort.presort_columns(num)
+    kw = dict(num=num, cat=torch.as_tensor(small.cat, device=dev),
+              labels=torch.as_tensor(small.labels, device=dev),
+              sorted_vals=presort.gather_sorted(num, si), sorted_idx=si,
+              arities=small.arities, num_classes=small.num_classes,
+              params=p, seed=args.seed)
+    t0 = time.perf_counter()
+    spec, _ = build_tree_reference(tree_idx=0, **kw)
+    torch.cuda.synchronize()
+    seed_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    trees, _ = tree_lib.build_forest(tree_indices=[0], **kw)
+    torch.cuda.synchronize()
+    forest_s = time.perf_counter() - t0
+    if not same_trees([spec], trees):
+        fail("(e) the seed builder's tree differs from build_forest's")
+    out["e"] = dict(seed_s=seed_s, forest_s=forest_s, nodes=spec.num_nodes)
+    log(f"  (e) seed builder: depth <= {SEED_DEPTH} on {small.n} Leo rows, "
+        f"{spec.num_nodes} nodes in {seed_s:.3f} s, equal to build_forest's "
+        f"tree ({forest_s:.3f} s)")
+    out["phase_s"] = time.perf_counter() - t_phase
+    log(f"  phase 6 total {out['phase_s']:.1f} s")
+    return out
 
 
 def profiled(fn, unprofiled_s: float):
@@ -1219,10 +1404,15 @@ def main() -> int:
 
     log("phase 4: predict")
     phase4(args, dev, rf, test)
+    exact_trees = rf.trees
     del rf
 
     log("phase 5: hist mode on the card")
-    _, hist_b = phase5(args, dev, train, test, maj_train, maj_test)
+    _, hist_b, maj_exact = phase5(args, dev, train, test, maj_train,
+                                  maj_test)
+
+    log("phase 6: the reference's default path")
+    phase6(args, dev, train, maj_train, exact_trees, maj_exact)
 
     kernels = []
     sources = {"split_scan": ("src/repro_torch/csrc/split_scan.cu",

@@ -6,8 +6,9 @@ the wire.  The draws come from the port's copy of the reference's
 threefry generator (`core/prng.py`), so they equal the reference's draws
 bit for bit and the port grows the same trees.
 
-Modes: "poisson" (independent Poisson(1) counts, the default) and "none"
-(weight 1 everywhere).  "multinomial" is not ported yet (ROADMAP).
+Modes: "poisson" (independent Poisson(1) counts, the default),
+"multinomial" (n-out-of-n sampling with replacement, the paper's stated
+scheme: n uniform row draws, counted) and "none" (weight 1 everywhere).
 """
 from __future__ import annotations
 
@@ -43,9 +44,13 @@ def bag_counts_forest(seed, tree_indices, n: int, mode: str = "poisson",
     if mode == "none":
         return torch.ones((len(tidx), n), dtype=torch.float32, device=device)
     if mode == "multinomial":
-        raise NotImplementedError(
-            "multinomial bagging is not ported yet (ROADMAP, port slice 1 "
-            "left-outs)")
+        # the counts are integers, so the float32 cast is exact below 2^24
+        keys = prng.fold_in(_base_key(seed, device)[None, :], tidx)
+        draws = prng.randint(keys, (n,), 0, n)                # (T, n)
+        T = len(tidx)
+        flat = draws + torch.arange(T, device=draws.device)[:, None] * n
+        return torch.bincount(flat.reshape(-1), minlength=T * n).reshape(
+            T, n).to(torch.float32)
     raise ValueError(f"unknown bagging mode {mode!r}")
 
 

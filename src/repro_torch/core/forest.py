@@ -21,7 +21,7 @@ from typing import Optional
 import numpy as np
 import torch
 
-from repro_torch.core import bagging, presort, tree as tree_lib
+from repro_torch.core import bagging, importance, presort, tree as tree_lib
 from repro_torch.core.dataset import TabularDataset
 from repro_torch.device import resolve_device
 
@@ -306,6 +306,12 @@ class RandomForest:
         counted = oob.sum(0)
         mask = counted > 0
         return float((correct[mask] / counted[mask]).mean())
+
+    def feature_importances(self) -> np.ndarray:
+        """Mean decrease in impurity per feature, normalized to sum 1 —
+        the paper's distributed feature importance (per-splitter partial
+        sums merged, `importance.mdi_importance`)."""
+        return importance.mdi_importance(self.trees, self.m)
 
     def auc(self, ds: TabularDataset) -> float:
         """Binary AUC (the paper's headline metric on Leo / Fig. 1)."""

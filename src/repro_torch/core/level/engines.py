@@ -33,6 +33,9 @@ from repro_torch.kernels import split_scan
 # Breiman scoring runs over column chunks whose count tables stay below
 # this many float32 elements, bounding the sort/cumsum temporaries.
 _SCORE_CHUNK_ELEMS = 1 << 27
+# The segment scorers run over column chunks of at most this many
+# (column, row, stat) elements.
+_SEGMENT_CHUNK_ELEMS = 1 << 26
 
 
 class LevelInputs(NamedTuple):
@@ -40,6 +43,13 @@ class LevelInputs(NamedTuple):
 
     The shared read-only fields are column-major: row k of column j is
     `num_cols[j, k]` / `cat_cols[j, k]` / `bin_of[j, k]`.
+
+    `ord_idx` and `row_counts` are the `segment` backend's leaf-ordered
+    layout, present only when the plan keeps it (`plan.use_ord`):
+    `ord_idx[t, j]` lists column j's rows of tree t grouped by leaf (ids
+    ascending, closed rows first) and value-ascending inside each leaf,
+    and `row_counts[t, l]` counts leaf l's rows, closed and out-of-bag
+    ones included.  The presort is not passed with it.
 
     The last four fields are the histogram-subtraction state, present only
     when the plan carries tables (`st.subtract`): `prev_tables` holds the
@@ -52,13 +62,15 @@ class LevelInputs(NamedTuple):
     num_cols: torch.Tensor      # (m_num, n) raw numeric columns
     cat_cols: torch.Tensor      # (m_cat, n) raw categorical columns
     labels: torch.Tensor        # (n,) class ids / regression targets
-    sorted_vals: torch.Tensor   # (m_num, n) presorted values
-    sorted_idx: torch.Tensor    # (m_num, n) presorted row ids (int32)
+    sorted_vals: torch.Tensor   # (m_num, n) presorted values (or None)
+    sorted_idx: torch.Tensor    # (m_num, n) presorted row ids (or None)
     leaf_of: torch.Tensor       # (T, n) leaf id per row, 0 = closed
     w: torch.Tensor             # (T, n) bag weights
     stats: torch.Tensor         # (T, n, S) row stats
     totals: torch.Tensor        # (T, L+1, S) per-leaf stat totals
     bin_of: torch.Tensor = None       # (m_num, n) packed hist bucket ids
+    ord_idx: torch.Tensor = None      # (T, m_num, n) leaf order (int32)
+    row_counts: torch.Tensor = None   # (T, L+1) rows per leaf, ord layout
     prev_tables: torch.Tensor = None  # (T, m_num, Wprev, B, S) previous level
     parent_of: torch.Tensor = None    # (T, L+1) parent leaf id at prev level
     sib_of: torch.Tensor = None       # (T, L+1) sibling's current leaf id
@@ -87,6 +99,7 @@ class SplitEngine:
     """Base protocol.  Subclasses are frozen dataclasses."""
 
     kind: str = "numeric"       # "numeric" | "categorical"
+    uses_ord: bool = False      # True: reads the incremental leaf order
     needs_bins: bool = False    # True: reads the hist bin cache (hist mode)
     bin_cut_thresholds: bool = False  # True: thresholds are BIN INDICES,
                                 # decoded on the host; conditions are
@@ -100,16 +113,81 @@ class SplitEngine:
         raise NotImplementedError
 
 
+def _column_chunk(m: int, n: int, S: int) -> int:
+    """Columns per chunk of a segment scorer: its (columns, n, S)
+    temporaries stay below `_SEGMENT_CHUNK_ELEMS` elements each."""
+    return max(1, min(m, _SEGMENT_CHUNK_ELEMS // max(1, n * S)))
+
+
+def _segment_supersplits(sorted_vals, sorted_idx, leaf_of, w, stats, cand,
+                         Lp, impurity, task, min_records):
+    """The `segment` backend over the presort, without the leaf-ordered
+    layout: each column counting-sorted by leaf and scored on its own
+    per-leaf totals (`best_numeric_split_segment`), in column chunks.
+
+    sorted_vals/sorted_idx (m, n); leaf_of/w (T, n); stats (T, n, S);
+    cand (T, m, Lp+1).  Returns gains and thresholds, each (T, m, Lp+1).
+    """
+    T, n = leaf_of.shape
+    m = sorted_idx.shape[0]
+    gains = torch.empty((T, m, Lp + 1), dtype=torch.float32,
+                        device=leaf_of.device)
+    thr = torch.empty_like(gains)
+    step = _column_chunk(m, n, stats.shape[-1])
+    for t in range(T):
+        for j0 in range(0, m, step):
+            j1 = min(m, j0 + step)
+            si = sorted_idx[j0:j1].long()
+            gains[t, j0:j1], thr[t, j0:j1] = splits.best_numeric_split_segment(
+                sorted_vals[j0:j1], leaf_of[t][si], w[t][si], stats[t][si],
+                cand[t, j0:j1], Lp, impurity, task, min_records)
+    return gains, thr
+
+
+def _leaf_ordered_supersplits(inp, st, Lp, cand):
+    """The `segment` backend over the leaf-ordered layout: every column of
+    every tree, in column chunks.  Classification scores against the
+    level's shared totals (exact: integer bag counts); regression reduces
+    each column's own totals, as the reference does."""
+    T, m, n = inp.ord_idx.shape
+    S = inp.stats.shape[-1]
+    gains = torch.empty((T, m, Lp + 1), dtype=torch.float32,
+                        device=inp.leaf_of.device)
+    thr = torch.empty_like(gains)
+    step = _column_chunk(m, n, S)
+    for t in range(T):
+        lf_pos = inp.leaf_of[t][inp.ord_idx[t, 0].long()]   # every column's
+        open_pos = lf_pos > 0
+        tot = inp.totals[t] if st.task == "classification" else None
+        for j0 in range(0, m, step):
+            j1 = min(m, j0 + step)
+            oi = inp.ord_idx[t, j0:j1].long()
+            g, h = splits.best_numeric_split_leaf_ordered(
+                torch.gather(inp.num_cols[j0:j1], 1, oi), lf_pos,
+                (inp.w[t][oi] > 0) & open_pos, inp.stats[t][oi],
+                cand[t, j0:j1], Lp, st.impurity, st.task, st.min_records,
+                totals=tot, row_counts=inp.row_counts[t])
+            gains[t, j0:j1], thr[t, j0:j1] = g, h
+    return gains, thr
+
+
 @dataclasses.dataclass(frozen=True)
 class ExactNumeric(SplitEngine):
-    """The paper's midpoint-exhaustive numeric search.
+    """The paper's midpoint-exhaustive numeric search.  Every backend
+    gives the same trees.
 
-    backend = "kernel" runs the `split_scan` kernel (its plain version on
-    CPU tensors); "scan" runs the plain Alg. 1 recurrence on any device.
-    Both give the same trees.  The reference's default "segment" backend
-    (leaf-ordered layout) is not ported yet (ROADMAP).
+    backend = "segment" (the reference's default) reads the incrementally
+    kept (leaf, value)-sorted layout when the driver hands it
+    (`inp.ord_idx`), and else counting-sorts each presorted column by
+    leaf; its prefix sums, cummax and segment reductions are plain
+    PyTorch on any device.  "kernel" runs the `split_scan` kernel (its
+    plain version on CPU tensors); "scan" the plain Alg. 1 recurrence.
     """
-    backend: str = "kernel"
+    backend: str = "segment"
+
+    @property
+    def uses_ord(self) -> bool:
+        return self.backend == "segment"
 
     def supersplits(self, inp, st, Lp, cand):
         if self.backend == "kernel":
@@ -123,9 +201,15 @@ class ExactNumeric(SplitEngine):
                 inp.labels.to(torch.float32), cand, inp.totals,
                 impurity=st.impurity, task=st.task,
                 min_records=st.min_records), None)
-        raise NotImplementedError(
-            f"ExactNumeric backend {self.backend!r} is not ported (ROADMAP: "
-            f"numeric segment backend)")
+        if self.backend != "segment":
+            raise ValueError(f"unknown exact backend {self.backend!r}")
+        with record_function("level.segment_score"):
+            if inp.ord_idx is not None:
+                return (*_leaf_ordered_supersplits(inp, st, Lp, cand), None)
+            return (*_segment_supersplits(
+                inp.sorted_vals, inp.sorted_idx, inp.leaf_of, inp.w,
+                inp.stats, cand, Lp, st.impurity, st.task,
+                st.min_records), None)
 
 
 # ---------------------------------------------------------------------------

@@ -7,7 +7,8 @@ tree in the batch:
 
     candidate draw → engine supersplits → cross-feature winner argmax →
     condition evaluation (step 5) → leaf reassignment (step 6) → next totals
-    (+ the carried histogram tables under hist-mode subtraction)
+    (+ the incremental leaf-order partition of the `segment` backend, and
+    the carried histogram tables under hist-mode subtraction)
 
 The reference vmapped a per-tree core over the tree axis; here the tree
 axis T is written out in every tensor, and the next level's totals are
@@ -95,6 +96,13 @@ class LevelPlan:
             num_bins=self.num_bins)
 
     @property
+    def use_ord(self) -> bool:
+        """The driver keeps the incremental (leaf, value) row order for
+        this plan (the exact `segment` backend)."""
+        return bool(self.m_num) and self.numeric is not None \
+            and self.numeric.uses_ord
+
+    @property
     def use_bin_cuts(self) -> bool:
         """The numeric engine reports BIN INDICES, not float thresholds:
         conditions are evaluated on the bit-packed bin cache and the host
@@ -125,8 +133,7 @@ def make_plan(params, *, m_num: int, m_cat: int, max_arity: int,
     Defaults: the engine for `params.split_mode` on `params.backend`, and
     the categorical tables.  A numeric `engine` must match the split mode
     (a hist engine scores bucket boundaries, an exact engine needs the
-    presort).  Raises NotImplementedError, naming the ROADMAP item, for
-    the exact numeric `segment` backend, which the port does not carry.
+    presort).
     """
     hist = params.split_mode == "hist"
     if engine is None:
@@ -140,11 +147,6 @@ def make_plan(params, *, m_num: int, m_cat: int, max_arity: int,
     elif not hist and engine.needs_bins:
         raise ValueError(
             f"split_mode='exact' cannot use histogram engine {engine!r}")
-    if m_num and isinstance(engine, ExactNumeric) \
-            and engine.backend == "segment":
-        raise NotImplementedError(
-            "the numeric 'segment' backend is not ported (ROADMAP: numeric "
-            "segment backend); use backend='kernel' or 'scan'")
     if cat_engine is None:
         cat_engine = CategoricalTable(params.backend)
     elif cat_engine.kind != "categorical":
@@ -169,6 +171,64 @@ def _candidates(fkeys, depth, splittable_p, Lp, plan):
     closed = torch.zeros((cand.shape[0], 1, m), dtype=torch.bool,
                          device=cand.device)
     return torch.cat([closed, cand], 1).transpose(1, 2)        # (T, m, L+1)
+
+
+def _partition_leaf_order(ord_idx, lf_pos, bits, new_left, new_right,
+                          row_counts, key_counts):
+    """Advance the per-column (leaf, value)-sorted row order to the next
+    level.
+
+    ord_idx (T, m, n) row ids; lf_pos (T, n) the current leaf id at each
+    position (the same for every column); bits (T, n) row-indexed, True =
+    the row went LEFT; new_left/new_right (T, L+1) child ids (0 = the
+    leaf closed); row_counts (T, L+1) rows per current leaf and
+    key_counts (T, 2L+1) rows per next leaf, closed rows included.
+
+    Children take consecutive ids in parent order (left < right, closed =
+    0), so the stable counting sort by the NEW leaf id reduces to: closed
+    rows to the front in their block order, then a stable left/right
+    partition inside each parent's contiguous block.  Rows keep their
+    relative (value-ascending) order inside every child, exactly what a
+    stable sort would give, so the scorer's prefix sums run in the
+    reference's order.  One cumsum and one scatter whose targets are a
+    permutation of each row of `ord_idx`: deterministic on any device.
+    Returns the new ord_idx (T, m, n), same dtype.
+    """
+    T, m, n = ord_idx.shape
+    dev = ord_idx.device
+    lf = lf_pos.long()
+    rc = row_counts.long()
+    kc = key_counts.long()
+    # parents either split wholly or close wholly, so a block is all
+    # closed or all left/right; closed rows keep their block order,
+    # after the closed rows of earlier parents
+    parent_closed = new_left == 0                           # (T, L+1)
+    closed_sizes = torch.where(parent_closed, rc, 0)
+    closed_before = closed_sizes.cumsum(1) - closed_sizes
+    offs = kc.cumsum(1) - kc                                # per new leaf
+    start = torch.gather(rc.cumsum(1) - rc, 1, lf)          # block starts
+    in_block = torch.arange(n, device=dev) - start          # rank in block
+    closed_here = torch.gather(parent_closed, 1, lf)
+    pos_closed = torch.gather(closed_before, 1, lf) + in_block
+    offs_l = torch.gather(offs, 1, torch.gather(new_left.long(), 1, lf))
+    offs_r = torch.gather(offs, 1, torch.gather(new_right.long(), 1, lf))
+
+    oi = ord_idx.long()
+    went_left = torch.gather(bits, 1, oi.reshape(T, m * n)).reshape(T, m, n)
+    del oi
+    # left rows before each position: one 1-D prefix count over all rows
+    # (a 1-D scan is one CUB pass on the card), differenced at the block
+    # start, which lies in the same (tree, column) row
+    cl = torch.cumsum(went_left.reshape(-1), 0).view(T, m, n) \
+        - went_left.long()
+    left_rank = cl - torch.gather(cl, 2, start[:, None, :].expand(T, m, n))
+    del cl
+    pos = torch.where(
+        closed_here[:, None], pos_closed[:, None],
+        torch.where(went_left, offs_l[:, None] + left_rank,
+                    offs_r[:, None] + in_block[:, None] - left_rank))
+    del left_rank, went_left
+    return torch.empty_like(ord_idx).scatter_(2, pos, ord_idx)
 
 
 def _eval_conditions_core(num_cols, cat_cols, leaf_of, feat_of_leaf,
@@ -218,7 +278,8 @@ def _level_step_core(inp: LevelInputs, splittable_p, fkeys, depth, *,
     cross-feature argmax, condition evaluation and leaf reassignment.
     `subtract` says the inputs carry a valid previous level of histogram
     tables (not at the root).  Returns (struct of per-leaf (T, L+1)
-    decisions, new leaf_of (T, n), the level's carried tables or None).
+    decisions, new leaf_of (T, n), the level's carried tables or None,
+    the (bits, new_left, new_right) the leaf-order partition reads).
     """
     m_num, m_cat = plan.m_num, plan.m_cat
     T = inp.leaf_of.shape[0]
@@ -246,15 +307,16 @@ def _level_step_core(inp: LevelInputs, splittable_p, fkeys, depth, *,
                                                     cand[:, m_num:])
         gains_parts.append(g)
     with record_function("level.reassign"):
-        struct, new_leaf_of = _merge_and_reassign(
+        struct, new_leaf_of, part = _merge_and_reassign(
             inp, plan, splittable_p, gains_parts, thr_num, masks, Lp)
-    return struct, new_leaf_of, tables
+    return struct, new_leaf_of, tables, part
 
 
 def _merge_and_reassign(inp, plan, splittable_p, gains_parts, thr_num, masks,
                         Lp):
     """Cross-feature winner per leaf, child ids, condition evaluation and
-    leaf reassignment (Alg. 2 steps 3-6)."""
+    leaf reassignment (Alg. 2 steps 3-6).  Returns (struct, new leaf_of,
+    (bits, new_left, new_right))."""
     m_num, m_cat = plan.m_num, plan.m_cat
     T = inp.leaf_of.shape[0]
     L1 = Lp + 1
@@ -302,12 +364,13 @@ def _merge_and_reassign(inp, plan, splittable_p, gains_parts, thr_num, masks,
     struct = {"best_feat": best_feat.to(torch.int32), "best_gain": best_gain,
               "thr": thr_of_leaf, "mask": mask_of_leaf,
               "will_split": will_split}
-    return struct, new_leaf_of
+    return struct, new_leaf_of, (bits, new_left, new_right)
 
 
 def _fused_level_step_batched(inp: LevelInputs, splittable_p, fkeys, depth,
                               *, plan: LevelPlan, Lp: int,
-                              subtract: bool = False):
+                              subtract: bool = False,
+                              need_partition: bool = False):
     """One depth level of EVERY tree in the batch.
 
     `Lp` is the batch-wide padded frontier width; trees with fewer open
@@ -316,22 +379,37 @@ def _fused_level_step_batched(inp: LevelInputs, splittable_p, fkeys, depth,
     Because the candidate draw is padding-independent, every tree equals
     its own one-tree build.  Returns (struct, new leaf_of (T, n), next
     totals (T, 2·Lp+1, S), the level's tables (T, m_num, Lp+1, B, S) when
-    the plan carries them, else None).  A carrying plan also puts the
-    next level's per-child row counts (`key_counts`, (T, 2·Lp+1) int64,
-    closed rows included) into the struct: the host picks each split's
-    smaller child as the next build leaf from them.
+    the plan carries them, else None, the next level's ord_idx).
+
+    The struct always holds `closed_rows`, the number of rows closed in
+    EVERY tree (the pruning trigger, fetched with the struct at no extra
+    sync).  A plan that carries tables or keeps the leaf order also puts
+    the next level's per-child row counts (`key_counts`, (T, 2·Lp+1)
+    int64, closed rows included) into it: the host picks each split's
+    smaller child as the next build leaf from them, and they are the ord
+    layout's next `row_counts`.  Under the ord layout (`plan.use_ord`)
+    and `need_partition` the per-column leaf order advances to the next
+    level (`_partition_leaf_order`); on the last level that can split it
+    stays as it is, since no level reads it again.
     """
-    struct, new_leaf_of, tables = _level_step_core(
+    struct, new_leaf_of, tables, part = _level_step_core(
         inp, splittable_p, fkeys, depth, plan=plan, Lp=Lp, subtract=subtract)
+    struct["closed_rows"] = (~(new_leaf_of > 0).any(0)).sum()
     # next-level totals on the flat (tree, segment) index space
     with record_function("level.next_totals"):
         next_totals = _leaf_totals(new_leaf_of, inp.stats, inp.w, 2 * Lp,
                                    plan.task)
-        if plan.carries_tables:
+        if plan.carries_tables or plan.use_ord:
             T = new_leaf_of.shape[0]
             L2 = 2 * Lp + 1
             flat = (new_leaf_of.long() + torch.arange(
                 T, device=new_leaf_of.device)[:, None] * L2).reshape(-1)
             struct["key_counts"] = torch.bincount(
                 flat, minlength=T * L2).reshape(T, L2)
-    return struct, new_leaf_of, next_totals, tables
+    ord_idx = inp.ord_idx
+    if plan.use_ord and need_partition:
+        with record_function("level.partition"):
+            lf_pos = torch.gather(inp.leaf_of, 1, ord_idx[:, 0].long())
+            ord_idx = _partition_leaf_order(
+                ord_idx, lf_pos, *part, inp.row_counts, struct["key_counts"])
+    return struct, new_leaf_of, next_totals, tables, ord_idx

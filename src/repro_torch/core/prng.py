@@ -10,6 +10,7 @@ port's own copy of the pieces the reference uses, bit for bit, under
   * `prng_key(seed)` — `jax.random.PRNGKey(int)`;
   * `fold_in`, `split` — the partitionable (fold-like) key derivations;
   * `uniform` — float32 in [0, 1) from the top 23 random bits;
+  * `randint` — `jax.random.randint` for int32 draws in [lo, hi);
   * `poisson_knuth` — `jax.random.poisson` for rate < 10: Knuth's loop.
 
 A key is an int64 tensor `(..., 2)` holding two uint32 words; uint32
@@ -91,6 +92,29 @@ def uniform(key: torch.Tensor, shape: tuple) -> torch.Tensor:
     """`jax.random.uniform(key, shape)` in float32: (..., *shape)."""
     bits = (random_bits(key, shape) >> 9) | 0x3F800000
     return bits.to(torch.int32).view(torch.float32) - 1.0
+
+
+def randint(key: torch.Tensor, shape: tuple, minval: int,
+            maxval: int) -> torch.Tensor:
+    """`jax.random.randint(key, shape, minval, maxval)` for int32 draws
+    (64-bit mode off): (..., *shape) int64 values in [minval, maxval).
+
+    As `jax._src.random._randint` computes it: the key splits in two, each
+    half draws 32 random bits per element (higher and lower), and the
+    offset is (hi mod span) · (2^32 mod span) + (lo mod span), mod span —
+    all uint32 arithmetic that wraps, reproduced here in int64 with masks.
+    """
+    minval, maxval = int(minval), int(maxval)
+    if not (-(1 << 31) <= minval and maxval <= (1 << 31) - 1):
+        raise ValueError("randint bounds must fit in int32")
+    span = (maxval - minval) & MASK if maxval > minval else 1
+    keys = split(key)
+    hi = random_bits(keys[..., 0, :], shape)
+    lo = random_bits(keys[..., 1, :], shape)
+    mult = (1 << 16) % span
+    mult = ((mult * mult) & MASK) % span
+    off = ((((hi % span) * mult) & MASK) + lo % span) & MASK
+    return minval + off % span
 
 
 def poisson_knuth(key: torch.Tensor, lam: float, shape: tuple) -> torch.Tensor:

@@ -190,6 +190,206 @@ def best_numeric_split_scan(
 
 
 # ---------------------------------------------------------------------------
+# Numerical — rows in (leaf, value) order: the segment backends
+# ---------------------------------------------------------------------------
+#
+# Both segment scorers work on rows grouped in contiguous leaf blocks, leaf
+# ids ascending, values ascending inside a block.  The reference builds
+# their scans with `associative_scan`; PyTorch has none, so each scan is
+# rebuilt from primitives that give the same bits on any device: 1-D
+# prefix sums (on the card a 1-D `cumsum` is one CUB scan, where a scan
+# along an inner dimension of a 2-D or 3-D tensor runs a row per thread
+# group, or one thread per row along an outer one) and segmented
+# reductions over the blocks (`torch.segment_reduce`, order-free max/min).
+
+def _segmented_cummax_exclusive(vals, inbag, start_idx):
+    """Max of the in-bag values at earlier rows of the same block, −inf
+    where there is none (the paper's v_h before row i).
+
+    vals/inbag (B, n); start_idx (B or 1, n), where each row's block
+    starts.  Values ascend inside a block, so that max is the value at the
+    last earlier in-bag row: the k-th in-bag position is scattered to slot
+    k of a table (one prefix count over the flattened rows), and row i
+    reads the slot of the in-bag count before it, compared against its
+    block start.
+    """
+    B, n = vals.shape
+    N = B * n
+    inb = inbag.reshape(-1)
+    count = torch.cumsum(inb, 0)                 # in-bag rows up to i
+    pos = torch.arange(N, device=vals.device)
+    slot = torch.full((N + 2,), -1, dtype=torch.int64, device=vals.device)
+    slot.scatter_(0, torch.where(inb, count, N + 1), pos)  # N+1: unused
+    prev = slot[count - inb.long()].view(B, n)   # last in-bag row before i
+    start = start_idx + torch.arange(B, device=vals.device)[:, None] * n
+    pv = vals.reshape(-1)[prev.clamp(min=0)].view(B, n)
+    return torch.where(prev >= start, pv, NEG)
+
+
+def _segmented_first_max(gain, tau, lengths):
+    """Per segment, the largest gain and the threshold of the FIRST row
+    that reaches it (scan-order ties, as Alg. 1 breaks them).
+
+    gain/tau (..., n) flattened row-major are the rows of consecutive
+    segments of `lengths` rows each.  A segment with no row gets (−inf,
+    0); one whose rows all have gain −inf gets its first row's threshold.
+    Both reductions (the max, then the min over the positions reaching
+    it) are exact in any order.
+    """
+    g = gain.reshape(-1)
+    N = g.numel()
+    best = torch.segment_reduce(g, "max", lengths=lengths, unsafe=True,
+                                initial=NEG)
+    hit = g >= torch.repeat_interleave(best, lengths, output_size=N)
+    pos = torch.arange(N, device=g.device, dtype=torch.float64)
+    first = torch.segment_reduce(torch.where(hit, pos, float(N)), "min",
+                                 lengths=lengths, unsafe=True,
+                                 initial=float(N)).long()
+    thr = torch.where(first < N, tau.reshape(-1)[first.clamp(max=N - 1)],
+                      0.0)
+    return best, thr
+
+
+def _score_leaf_blocks(vals, lf, inbag, stats, cand, start_idx, end_idx,
+                       lengths, num_leaves, impurity, task, min_records,
+                       totals):
+    """The exact supersplit of B rows of n positions in (leaf, value) order.
+
+    vals/inbag (B, n); stats (B, n, S); cand (B, L+1); lf, start_idx,
+    end_idx (B or 1, n) — each position's leaf id and its block's first
+    and last position (one shared row when every column has the same
+    blocks); lengths (B·(L+1),) int64, the rows of each (row, leaf)
+    block.  `totals` (B or 1, L+1, S) gives the parent stats per leaf;
+    None reduces them from each row's own blocks.  Returns (best_gain,
+    best_threshold), each (B, L+1).
+
+    Prefix sums run in float64, one 1-D scan per stat, and are cast:
+    classification stats are integer bag counts, exact below 2^53 (in
+    float32 they would be exact only below 2^24), and regression sums
+    carry float64's rounding, not float32's.
+    """
+    B, n = vals.shape
+    S = stats.shape[-1]
+    L1 = num_leaves + 1
+    cnt = count_fn(task)
+    acc = torch.where(inbag[..., None], stats, 0.0).double()
+    acc = acc.permute(2, 0, 1).contiguous()              # (S, B, n)
+    cum_excl = torch.stack([a.reshape(-1).cumsum(0) for a in acc]).view(
+        S, B, n) - acc
+    sidx = start_idx.expand(B, n).expand(S, B, n)
+    left = (cum_excl - torch.gather(cum_excl, 2, sidx)).to(torch.float32)
+    if totals is None:
+        eidx = end_idx.expand(B, n).expand(S, B, n)
+        parent = (torch.gather(cum_excl, 2, eidx) + torch.gather(acc, 2, eidx)
+                  - torch.gather(cum_excl, 2, sidx)).to(torch.float32)
+        parent = parent.permute(1, 2, 0)
+    else:
+        parent = torch.gather(totals, 1,
+                              lf.long()[..., None].expand(*lf.shape, S))
+    del acc, cum_excl
+    left = left.permute(1, 2, 0)                         # (B, n, S) view
+    right = parent - left
+    pv = _segmented_cummax_exclusive(vals, inbag, start_idx)
+    ok = inbag & torch.gather(cand, 1, lf.long().expand(B, n)) \
+        & (vals > pv) & torch.isfinite(pv) \
+        & (cnt(left) >= min_records) & (cnt(right) >= min_records)
+    # the parent impurity comes from left + right per row (inside
+    # split_gain), as the reference computes it, not from the gathered
+    # totals: evaluated at another shape, entropy's log could differ in
+    # the last ulp
+    gain = torch.where(ok, split_gain(left, right, impurity), NEG)
+    del left, right, parent, ok
+    tau = (vals + pv) * 0.5
+    best_s, best_t = _segmented_first_max(gain, tau, lengths)
+    return best_s.reshape(B, L1), best_t.reshape(B, L1)
+
+
+def best_numeric_split_segment(
+    vals_sorted: torch.Tensor,   # (..., n) float32, ascending
+    leaf_sorted: torch.Tensor,   # (..., n) int in [0, L], 0 = closed
+    w_sorted: torch.Tensor,      # (..., n) float32 bag weights
+    stats_sorted: torch.Tensor,  # (..., n, S) float32 row stats
+    cand_leaf: torch.Tensor,     # (..., L+1) bool
+    num_leaves: int,
+    impurity: str = "gini",
+    task: str = "classification",
+    min_records: float = 1.0,
+    totals: torch.Tensor | None = None,   # (..., L+1, S) per-leaf totals
+) -> tuple[torch.Tensor, torch.Tensor]:
+    """Exact vectorized supersplit: a stable counting sort by leaf, then
+    segmented prefix sums over each leaf's value-ascending block.
+
+    Leading dimensions (columns) batch.  Returns (best_gain,
+    best_threshold), each (..., L+1); totals default to each column's own
+    in-bag per-leaf sums.  The seed builder's default scorer.
+    """
+    lead = vals_sorted.shape[:-1]
+    n = vals_sorted.shape[-1]
+    S = stats_sorted.shape[-1]
+    L1 = num_leaves + 1
+    B = math.prod(lead)
+    dev = vals_sorted.device
+    order = torch.sort(leaf_sorted.reshape(B, n), dim=-1,
+                       stable=True).indices     # leaves contiguous, values
+    lf = torch.gather(leaf_sorted.reshape(B, n).long(), 1, order)
+    a = torch.gather(vals_sorted.reshape(B, n), 1, order)
+    w = torch.gather(w_sorted.reshape(B, n), 1, order)
+    st = torch.gather(stats_sorted.reshape(B, n, S), 1,
+                      order[..., None].expand(B, n, S))
+    seg = lf + torch.arange(B, device=dev)[:, None] * L1
+    lengths = torch.bincount(seg.reshape(-1), minlength=B * L1)
+    ends = lengths.cumsum(0)
+    base = torch.arange(B, device=dev)[:, None] * n
+    end_idx = ends[seg] - 1 - base
+    start_idx = (ends - lengths)[seg] - base
+    if totals is not None:
+        totals = totals.reshape(B, L1, S)
+    g, t = _score_leaf_blocks(a, lf, (w > 0) & (lf > 0), st,
+                              cand_leaf.reshape(B, L1), start_idx, end_idx,
+                              lengths, num_leaves, impurity, task,
+                              min_records, totals)
+    return g.reshape(lead + (L1,)), t.reshape(lead + (L1,))
+
+
+def best_numeric_split_leaf_ordered(
+    vals: torch.Tensor,          # (m, n) float32, (leaf, value)-sorted rows
+    lf_pos: torch.Tensor,        # (n,) int leaf id PER POSITION (shared)
+    inbag: torch.Tensor,         # (m, n) bool: w > 0 & leaf open, per column
+    stats: torch.Tensor,         # (m, n, S) row stats in leaf order
+    cand_leaf: torch.Tensor,     # (m, L+1) bool
+    num_leaves: int,
+    impurity: str = "gini",
+    task: str = "classification",
+    min_records: float = 1.0,
+    totals: torch.Tensor | None = None,     # (L+1, S) shared per-leaf totals
+    row_counts: torch.Tensor | None = None,  # (L+1,) rows per leaf (all rows)
+) -> tuple[torch.Tensor, torch.Tensor]:
+    """Exact all-columns supersplit over rows already in leaf order.
+
+    Every column holds the same multiset of rows counting-sorted by the
+    same leaf ids, so the block structure is column-independent: `lf_pos`
+    is the one leaf-of-position array shared by all columns, and each
+    block's first and last position follow from the one `row_counts`
+    histogram (gathers, no per-column sort).  When `totals` is None the
+    per-leaf totals are reduced from each column's own rows; passing the
+    level's shared totals saves that — exact for classification, whose
+    stats are integer bag counts.  Returns (best_gain, best_threshold),
+    each (m, L+1).
+    """
+    L1 = num_leaves + 1
+    lf = lf_pos.long()
+    rc = torch.bincount(lf, minlength=L1) if row_counts is None \
+        else row_counts.long()
+    ends = rc.cumsum(0)
+    end_idx = (ends - 1)[lf][None]
+    start_idx = (ends - rc)[lf][None]
+    return _score_leaf_blocks(
+        vals, lf[None], inbag, stats, cand_leaf, start_idx, end_idx,
+        rc.repeat(vals.shape[0]), num_leaves, impurity, task, min_records,
+        None if totals is None else totals[None])
+
+
+# ---------------------------------------------------------------------------
 # Numerical — PLANET-style histogram (approximate) mode
 # ---------------------------------------------------------------------------
 

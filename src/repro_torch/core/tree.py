@@ -23,7 +23,8 @@ import numpy as np
 import torch
 from torch.profiler import record_function
 
-from repro_torch.core import bagging, class_list, presort, prng, splits
+from repro_torch.core import (bagging, class_list, presort, prng, pruning,
+                              splits)
 from repro_torch.core.level.engines import LevelInputs, SplitEngine
 from repro_torch.core.level.plan import (_fused_level_step_batched,
                                          _leaf_totals, _pad_leaves, make_plan)
@@ -35,14 +36,13 @@ from repro_torch.core.level.plan import (_fused_level_step_batched,
 
 @dataclasses.dataclass(frozen=True)
 class TreeParams:
-    """The reference's fields and defaults.  The port trains
-    `split_mode="exact"` with `backend="kernel"` or `"scan"` (or
-    `"segment"` when there are no numeric columns), and
-    `split_mode="hist"` with any backend, with or without `hist_subtract`.
+    """The reference's fields and defaults, all of them trained in memory
+    on one device: `split_mode="exact"` with the `segment` (default),
+    `scan` or `kernel` backend, and `split_mode="hist"` with any backend,
+    with or without `hist_subtract`; Sprint pruning; every bagging mode.
     Bin and category tables always come from the `feat_hist` and
     `cat_hist` kernels (their plain versions on the CPU), whatever the
-    backend.  The rest raises NotImplementedError naming its ROADMAP
-    item."""
+    backend."""
     max_depth: int = 20
     min_records: float = 1.0        # paper: "minimum number of records in a leaf"
     num_candidates: Optional[int] = None  # m' (None = ceil(sqrt(m)))
@@ -321,17 +321,20 @@ def build_forest(
     Per-tree bootstrap weights, PRNG keys and leaf frontiers are stacked on
     a leading tree axis; the frontier is padded to the batch maximum `Lp`
     and trees that finish early are masked through `splittable`.  Each
-    tree equals the one `build_tree(..., tree_idx=t)` grows.  In hist mode
-    with subtraction (classification), each level's tables stay on the
-    device for the next level, which builds only the smaller child of
-    every split and derives its sibling as parent − sibling.
+    tree equals the one `build_tree(..., tree_idx=t)` grows.  Under the
+    `segment` backend each (tree, column) keeps its rows in (leaf, value)
+    order from level to level (`plan.use_ord`), starting from the presort.
+    In hist mode with subtraction (classification), each level's tables
+    stay on the device for the next level, which builds only the smaller
+    child of every split and derives its sibling as parent − sibling.
+    With `prune_closed_frac` < 1, once the rows closed in every tree of
+    the batch reach that fraction, they are dropped from every
+    row-indexed array before the next level (Sprint pruning, paper §3);
+    the trees do not change.
 
     Returns (trees, stats_logs), parallel lists over `tree_indices`.
     """
     _check_params(params)
-    if params.prune_closed_frac < 1.0:
-        raise NotImplementedError(
-            "Sprint pruning (prune_closed_frac < 1) is not ported (ROADMAP)")
     n = int(labels.shape[0])
     m_num = int(sorted_vals.shape[0]) if sorted_vals.numel() else 0
     m_cat = len(arities)
@@ -353,11 +356,18 @@ def build_forest(
                                     bin_edges, dev)
     edges_np = bin_edges.cpu().numpy() if plan.use_bin_cuts else None
     carries = plan.carries_tables
+    use_ord = plan.use_ord
     num_cols = num.t().contiguous() if m_num and not plan.use_bin_cuts \
         else torch.zeros((0, n), dtype=torch.float32, device=dev)
     cat_cols = cat.t().contiguous() if m_cat else torch.zeros(
         (0, n), dtype=torch.int32, device=dev)
     sorted_idx = sorted_idx.to(torch.int32).contiguous()
+    # every tree starts at the root, where value order is (leaf, value)
+    # order: the leaf-ordered layout starts as the presort, which the
+    # level step then reads in its place
+    ord_idx = sorted_idx[None].expand(T, m_num, n) if use_ord else None
+    if use_ord or hist:
+        sorted_vals = sorted_idx = None
 
     # per-tree stacked state: bootstrap weights, stats, PRNG keys
     with record_function("fit.bagging"):
@@ -376,6 +386,8 @@ def build_forest(
     stats_logs: list[list[LevelStats]] = [[] for _ in range(T)]
 
     totals_np = None                      # (T, width, S), host
+    row_counts_np = None                  # (T, width), host (ord layout)
+    closed_np = 0                         # rows closed in EVERY tree
     Ls = [1] * T                          # current frontier size per tree
     tables = None                         # carried hist tables (device)
     maps_src = None                       # (ws, key_counts, Ls) of level-1
@@ -388,11 +400,17 @@ def build_forest(
         if totals_np is None:
             totals_np = _leaf_totals(leaf_of, stats, w, Lp,
                                      task).cpu().numpy()
+            row_counts_np = np.zeros((T, Lp + 1), np.int64)
+            row_counts_np[:, 1] = n
         else:
             cur = np.zeros((T, Lp + 1, totals_np.shape[-1]), np.float32)
             k = min(Lp + 1, totals_np.shape[1])
             cur[:, :k] = totals_np[:, :k]
             totals_np = cur
+            cur_rc = np.zeros((T, Lp + 1), np.int64)
+            k = min(Lp + 1, row_counts_np.shape[1])
+            cur_rc[:, :k] = row_counts_np[:, :k]
+            row_counts_np = cur_rc
         counts = cnt_np(totals_np)                   # (T, Lp+1)
         for t in range(T):                           # node values
             for h in range(1, Ls[t] + 1):
@@ -413,6 +431,25 @@ def build_forest(
         if not splittable_p.any():
             break
 
+        # Sprint pruning (paper §3): drop the rows closed in EVERY tree once
+        # they reach the threshold.  It runs before this level's step, so
+        # the leaf order is current (the step before max_depth, which skips
+        # its partition, never reaches here: the loop breaks above), and
+        # its trigger rode home in the previous level's struct.
+        drop = pruning.plan_drop(n, closed_np, params.prune_closed_frac)
+        if drop:
+            with record_function("fit.prune"):
+                (leaf_of, ord_idx, sorted_vals, sorted_idx, bin_of, num_cols,
+                 cat_cols, stats, w, labels) = pruning.compact_rows(
+                    keep=(leaf_of > 0).any(0),
+                    leaf_of=leaf_of, ord_idx=ord_idx,
+                    sorted_vals=sorted_vals, sorted_idx=sorted_idx,
+                    bin_of=bin_of, num_cols=num_cols, cat_cols=cat_cols,
+                    stats=stats, w=w, labels=labels)
+            n -= drop
+            row_counts_np[:, 0] -= drop          # dropped rows were leaf 0
+            closed_np -= drop
+
         t_level = time.perf_counter()
         # histogram subtraction: per-tree maps from the previous level's
         # split bitmap + child row counts (smaller child = build slot)
@@ -429,19 +466,27 @@ def build_forest(
             mp = torch.as_tensor(mp, device=dev)
             maps = dict(prev_tables=tables, parent_of=mp[0], sib_of=mp[1],
                         slot_of=mp[2])
+        if use_ord:
+            maps.update(ord_idx=ord_idx, row_counts=torch.as_tensor(
+                row_counts_np, device=dev))
         inp = LevelInputs(num_cols=num_cols, cat_cols=cat_cols,
                           labels=labels, sorted_vals=sorted_vals,
                           sorted_idx=sorted_idx, leaf_of=leaf_of, w=w,
                           stats=stats,
                           totals=torch.as_tensor(totals_np, device=dev),
                           bin_of=bin_of, **maps)
-        struct, leaf_of, next_totals, tables = _fused_level_step_batched(
-            inp, torch.as_tensor(splittable_p, device=dev), fkeys, depth,
-            plan=plan, Lp=Lp, subtract=subtract)
+        struct, leaf_of, next_totals, tables, ord_idx = \
+            _fused_level_step_batched(
+                inp, torch.as_tensor(splittable_p, device=dev), fkeys, depth,
+                plan=plan, Lp=Lp, subtract=subtract,
+                need_partition=depth + 1 < params.max_depth)
         with record_function("level.host_fetch"):
             host = {k: v.cpu().numpy() for k, v in struct.items()}
             totals_np = next_totals.cpu().numpy()
         wall = time.perf_counter() - t_level
+        closed_np = int(host["closed_rows"])
+        if use_ord or carries:
+            row_counts_np = host["key_counts"]
         if carries:
             maps_src = (host["will_split"], host["key_counts"], list(Ls))
 
@@ -451,7 +496,8 @@ def build_forest(
             if not participate[t]:
                 continue
             L = Ls[t]
-            host_t = {k: host[k][t] for k in host}
+            host_t = {k: host[k][t] for k in
+                      ("best_feat", "best_gain", "thr", "mask", "will_split")}
             next_open, any_split = _grow_level(
                 accs[t], open_nodes[t], host_t, L, m_num, depth,
                 edges_np=edges_np)

@@ -160,19 +160,31 @@ def test_scan_backend_and_build_tree_agree():
 
 
 @pytest.mark.parametrize("params,match", [
-    # hist mode trains; what it meets of the unported options still raises
-    pytest.param(dict(split_mode="hist", prune_closed_frac=0.5), "pruning",
-                 id="params0-hist"),
+    pytest.param(dict(split_mode="hist", num_bins=32, min_records=15,
+                      prune_closed_frac=0.05), "pruning", id="params0-hist"),
     (dict(backend="segment"), "segment"),
-    (dict(backend="kernel", prune_closed_frac=0.5), "pruning"),
+    (dict(backend="kernel", min_records=15, prune_closed_frac=0.05),
+     "pruning"),
     (dict(backend="kernel", bagging="multinomial"), "multinomial"),
 ])
 def test_unported_options_raise(params, match):
-    ds = synthetic.make_tabular("xor", 200, 2, 0, seed=1)
-    rf = RandomForest(tree_lib.TreeParams(max_depth=2, **params),
-                      num_trees=1, device="cpu")
-    with pytest.raises(NotImplementedError, match=match):
-        rf.fit(ds)
+    """The options the first slices left out (the numeric `segment`
+    backend, Sprint pruning in exact and hist mode, multinomial bagging)
+    raise no more: each trains and grows the reference's trees (the
+    reference fits with its default segment backend; its hist mode with
+    segment tables).  The name and ids are kept from when they raised."""
+    ref = reference()
+    rds = ref.synthetic.make_tabular("xor", 700, 2, 1, 2, seed=1)
+    kw = dict(max_depth=7, **params)
+    r, p = fit_both(rds, dict(kw, backend="segment"), kw, 2, 0, 2, 2)
+    assert_trees_equal(r.trees, p.trees)
+    if match == "pruning":
+        again = RandomForest(tree_lib.TreeParams(**kw), num_trees=2,
+                             tree_batch=2, device="cpu").fit(
+            port_ds(rds), collect_stats=True)
+        rows = [s.rows_scanned // s.feature_passes
+                for s in again.level_stats[0]]
+        assert rows[-1] < rows[0], rows
 
 
 def test_categorical_only_segment_backend_trains():

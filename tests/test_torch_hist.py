@@ -341,7 +341,8 @@ def test_hist_tables_go_through_kernel_wrappers(backend, monkeypatch):
 
 def test_make_plan_hist_and_exact_segment():
     """Hist mode resolves a plan on any backend; the exact numeric
-    `segment` backend still raises, naming its ROADMAP item."""
+    `segment` backend (which raised until it was ported) resolves to the
+    leaf-ordered plan, the others to the presort."""
     kw = dict(m_num=3, m_cat=1, max_arity=4, num_classes=2, m_prime=2)
     for backend in ("segment", "kernel", "scan"):
         plan = plan_lib.make_plan(
@@ -351,8 +352,12 @@ def test_make_plan_hist_and_exact_segment():
     reg = plan_lib.make_plan(tree_lib.TreeParams(
         split_mode="hist", task="regression", impurity="variance"), **kw)
     assert reg.use_bin_cuts and not reg.carries_tables
-    with pytest.raises(NotImplementedError, match="segment"):
-        plan_lib.make_plan(tree_lib.TreeParams(backend="segment"), **kw)
+    seg = plan_lib.make_plan(tree_lib.TreeParams(backend="segment"), **kw)
+    assert seg.use_ord and not seg.use_bin_cuts
+    assert seg.numeric == plan_lib.ExactNumeric("segment")
+    for backend in ("kernel", "scan"):
+        assert not plan_lib.make_plan(tree_lib.TreeParams(backend=backend),
+                                      **kw).use_ord
     with pytest.raises(ValueError, match="histogram engine"):
         plan_lib.make_plan(tree_lib.TreeParams(split_mode="hist"),
                            engine=plan_lib.ExactNumeric("kernel"), **kw)

@@ -87,8 +87,13 @@ def test_bag_counts_forest_match_reference(mode):
 
 
 def test_multinomial_bagging_is_not_ported():
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        bagging.bag_counts(0, 0, 10, "multinomial")
+    """Multinomial bagging raised until it was ported; it now draws the
+    reference's counts (more sizes in test_torch_bagging.py)."""
+    ref = reference()
+    got = bagging.bag_counts(0, 0, 10, "multinomial").numpy()
+    np.testing.assert_array_equal(
+        got, np.asarray(ref.bagging.bag_counts(0, 0, 10, "multinomial")))
+    assert got.sum() == 10
 
 
 @pytest.mark.parametrize("seed", [0, 17])
