@@ -29,9 +29,9 @@ Phases, each fatal on failure:
      just after; a second identical fit must grow identical trees;
   4. predict 2^20 held-out rows, print the AUC, check a save/load round
      trip, check that small fits on the card (exact, and hist with
-     subtraction, classification and regression) equal the same fits on
-     the CPU, and that repeated small regression fits on the card are
-     identical;
+     subtraction, classification and regression; entropy on the kernel
+     and the default segment backend) equal the same fits on the CPU, and
+     that repeated small regression fits on the card are identical;
   5. hist mode on the card, `TreeParams(max_depth=10, backend="kernel",
      split_mode="hist", num_bins=255)`, 4 trees, tree_batch=2, subtraction
      on, each fit with the counters set to 0 just before and read just
@@ -51,15 +51,31 @@ Phases, each fatal on failure:
      counts of 4 trees x 2^23 rows, card == CPU bit for bit, and a
      multinomial fit; (e) the seed builder `build_tree_reference` on
      2^18 Leo rows (depth 8) == that tree of `build_forest`; (f) (a)'s
-     feature importances.
+     feature importances;
+  7. out-of-core streamed training of phase 5 (b)'s rows and params: (a)
+     build a `MemmapRowSource` cache under build/repro_torch/stream/
+     (deleted at the end), whose edges and bins must equal the in-memory
+     quantizer's; (b) `fit_streamed` at chunk_size 2^20 (and a repeat) and
+     2^16, each with the counters set to 0 just before and read just
+     after: the trees must equal phase 5 (b)'s, feat_hist must launch once
+     per chunk of every table level, and feat_hist is held bit-equal to
+     its plain version on a chunk of the deepest level captured from the
+     fit; walls, per-level walls, host spans and peak device memory; (c)
+     `bagging="none"` fits of n/2 and n rows at chunk 2^20, whose peaks
+     must differ by less than 64 MiB; (d) the 2^20 fit in a subprocess
+     with `checkpoint_dir`, killed by SIGKILL after its third level
+     snapshot, then `resume=True` here, which must grow (b)'s trees.
 Prints a JSON line with every kernel's numbers, the nvidia-smi line, and
 last `{"ok": true, "device": {...}}`.  Exits non-zero without a GPU.
 """
 from __future__ import annotations
 
 import argparse
+import dataclasses
 import hashlib
 import json
+import shutil
+import signal
 import subprocess
 import sys
 import time
@@ -75,6 +91,9 @@ DEEP_L1 = 16385                  # split_scan past a block's shared memory
 HIST_BINS = 255                  # phase 5's bucket budget
 PRUNE_MIN, PRUNE_FRAC = 32768, 0.05  # phase 6 (c): min_records, prune trigger
 SEED_DEPTH = 8                   # phase 6 (e): the seed builder's depth
+STREAM_CHUNKS = (1 << 20, 1 << 16)  # phase 7 (b): the two chunk sizes
+STREAM_KILL_AFTER = 3            # phase 7 (d): level snapshots before SIGKILL
+PEAK_SPREAD = 64 * 2**20         # phase 7 (c): most the two peaks may differ
 
 
 def log(msg: str) -> None:
@@ -986,6 +1005,7 @@ def phase5(args, dev, leo_train, leo_test, maj_train, maj_test):
     log(f"  hist (b) held-out AUC {info_b['auc']:.6f}")
     if not info_b["auc"] > 0.6:
         fail(f"hist (b) AUC {info_b['auc']} is no better than chance")
+    info_b["trees"] = rf_b.trees        # phase 7's point of comparison
     del rf_b
     import torch
     from repro_torch.core.forest import RandomForest
@@ -1144,6 +1164,260 @@ def phase6(args, dev, leo_train, maj_train, leo_exact_trees, maj_exact):
     return out
 
 
+# ---------------------------------------------------------------------------
+# Phase 7: out-of-core streamed training
+# ---------------------------------------------------------------------------
+
+def stream_launch_counts(rf, n_rows: int, chunk: int, max_depth: int):
+    """The chunk steps a streamed fit must run, from its trees: each tree
+    batch runs one chunk pass per level down to its deepest node depth D,
+    over ceil(n / chunk) chunks (no pruning here); every level above
+    max_depth builds tables (feat_hist, one launch per chunk for a batch
+    of <= 8 trees), the max_depth level sums totals only.  Returns
+    (table chunk steps, all chunk steps)."""
+    chunks = -(-n_rows // chunk)
+    tables = steps = 0
+    for t0 in range(0, len(rf.trees), TREE_BATCH):
+        D = max(t.max_depth_reached for t in rf.trees[t0:t0 + TREE_BATCH])
+        steps += (D + 1) * chunks
+        tables += min(D + 1, max_depth) * chunks
+    return tables, steps
+
+
+def stream_fit(args, src, params, label, trees=None, capture=False,
+               profile_against=None):
+    """One `fit_streamed` of `src` with the launch and chunk-step counters,
+    the host spans and the peak device memory set to 0 just before and
+    read just after.  Fails unless feat_hist launched once per table chunk
+    step and the trees equal `trees` (when given).  With `capture`, keeps
+    the inputs of the last `feat_hist` call of the widest table (a chunk
+    of the deepest level), as its wrapper receives them.  With
+    `profile_against` (an unprofiled wall of the same fit, seconds) the
+    fit runs under the profiler (`profiled`)."""
+    import torch
+    from repro_torch.core import tree as tree_lib
+    from repro_torch.core.forest import RandomForest
+    from repro_torch.core.level import plan as plan_lib
+    from repro_torch.kernels import feat_hist
+    from repro_torch.kernels import ops as kops
+    captured = {}
+    adapter = kops.feature_tables
+
+    def record(bin_of, slots, w, labels, *, B, W, task, num_classes):
+        if W >= captured.get("W", 0):
+            captured.update(x=bin_of.clone(), slot=slots.clone(),
+                            w=w.clone(), y=labels.float(), W=W, B=B,
+                            S=kops.stat_dim(num_classes, task))
+        return adapter(bin_of, slots, w, labels, B=B, W=W, task=task,
+                       num_classes=num_classes)
+
+    def fit():
+        return RandomForest(params, num_trees=TREES, seed=args.seed,
+                            tree_batch=TREE_BATCH).fit_streamed(
+            src, collect_stats=True)
+
+    if capture:
+        kops.feature_tables = record
+    try:
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        feat_hist.launches = 0
+        plan_lib._STREAM_CHUNK_CALLS[0] = 0
+        for k in tree_lib.STREAM_SECONDS:
+            tree_lib.STREAM_SECONDS[k] = 0.0
+        t0 = time.perf_counter()
+        rf = (fit() if profile_against is None
+              else profiled(fit, profile_against))
+        torch.cuda.synchronize()
+        fit_s = time.perf_counter() - t0
+    finally:
+        kops.feature_tables = adapter
+    launches = feat_hist.launches
+    steps = plan_lib._STREAM_CHUNK_CALLS[0]
+    spans = dict(tree_lib.STREAM_SECONDS)
+    peak = torch.cuda.max_memory_allocated()
+    want_tables, want_steps = stream_launch_counts(rf, src.n,
+                                                   src.chunk_size,
+                                                   params.max_depth)
+    levels = batch_levels(rf, TREE_BATCH, params.leaf_pad)
+    log(f"  {label}: {fit_s:.3f} s for {TREES} trees on n={src.n} rows, "
+        f"chunk_size={src.chunk_size}; peak device memory "
+        f"{peak / 2**20:.1f} MiB; feat_hist launches {launches} (table "
+        f"chunk steps {want_tables}), chunk steps {steps} (expected "
+        f"{want_steps}); host spans, s: "
+        f"{json.dumps({k: round(v, 3) for k, v in spans.items()})}")
+    for lv in levels:
+        log(f"    level depth={lv['depth']} Lp={lv['Lp']} open={lv['open']} "
+            f"rows={lv['rows']}: {lv['s'] * 1e3:.3f} ms")
+    if launches != want_tables or steps != want_steps:
+        fail(f"{label}: feat_hist launched {launches} times for "
+             f"{want_tables} table chunk steps, {steps} chunk steps for "
+             f"{want_steps}")
+    if trees is not None and not same_trees(rf.trees, trees):
+        fail(f"{label}: the streamed trees differ from the in-memory trees")
+    info = dict(fit_s=fit_s, peak_bytes=peak, launches=launches,
+                chunk_steps=steps, spans=spans, chunk=src.chunk_size,
+                n=src.n, levels=[{k: lv[k] for k in ("depth", "Lp", "s")}
+                                 for lv in levels])
+    return rf, info, captured
+
+
+def check_captured_chunk(args, dev, cap, label):
+    """feat_hist on a captured chunk of the deepest level, held bit-equal
+    to its plain version and timed beside its bound."""
+    from repro_torch.kernels import feat_hist as fh
+    T, n = cap["slot"].shape
+    m = cap["x"].shape[0]
+    r = check_feat_hist(args, dev, None, n, T, m, cap["W"], cap["B"],
+                        cap["x"].dtype, "classification", True,
+                        inputs=(cap["x"], cap["slot"], cap["w"], cap["y"]))
+    r["path"] = "shared" if fh.hist_plan(T, m, n, cap["W"], cap["B"],
+                                         cap["S"]).shared else "device"
+    log(f"  {label}: feat_hist on a captured chunk of the deepest level "
+        f"(W={cap['W']}, {n} rows, {r['path']} path): bit-equal to plain; "
+        f"{r['ms']:.4f} ms (plain {r['plain_ms']:.3f}, bound "
+        f"{r['bound_ms']:.4f}, index_add_ {r['library_ms']:.3f})")
+    return {k: r[k] for k in ("W", "n", "path", "ms", "plain_ms", "bound_ms",
+                              "library_ms", "max_abs_err")}
+
+
+def phase7(args, dev, src_dir, maj_train, hist_trees):
+    """Out-of-core streamed training on the card; see the module
+    docstring.  Returns what PERF.md records."""
+    import numpy as np
+    import torch
+    from repro_torch.core import checkpoint, presort
+    from repro_torch.core.dataset import ArrayRowSource, MemmapRowSource
+    from repro_torch.core.forest import RandomForest
+    t_phase = time.perf_counter()
+    params = hist_params(args)
+    n = maj_train.n
+    work = ROOT / "build" / "repro_torch" / "stream"
+    shutil.rmtree(work, ignore_errors=True)
+    work.mkdir(parents=True)
+    out = {}
+    try:
+        # (a) the bin cache on disk, built by the streaming quantizer
+        t0 = time.perf_counter()
+        src = MemmapRowSource.from_numpy(
+            maj_train.num, maj_train.labels, num_bins=HIST_BINS,
+            path=work / "bins.npy", chunk_size=STREAM_CHUNKS[0])
+        out["build_s"] = time.perf_counter() - t0
+        num = torch.as_tensor(maj_train.num, device=dev)
+        sv = presort.gather_sorted(num, presort.presort_columns(num))
+        bins, edges = presort.quantize(num, sv, HIST_BINS)
+        del num, sv
+        if not np.array_equal(edges.cpu().numpy(), src.edges):
+            fail("(a) the streaming quantizer's edges differ from the "
+                 "in-memory quantizer's")
+        if not np.array_equal(bins.cpu().numpy(), src.bins_block(0, n)):
+            fail("(a) the cache's bins differ from the in-memory bins")
+        del bins, edges
+        log(f"  (a) MemmapRowSource cache of {n} rows x {src.m_num} columns "
+            f"({(work / 'bins.npy').stat().st_size / 2**20:.1f} MiB) built "
+            f"in {out['build_s']:.3f} s; edges and bins equal the in-memory "
+            f"quantizer's")
+
+        # (b) the two chunk sizes against phase 5 (b)'s in-memory trees
+        for chunk in STREAM_CHUNKS:
+            src.chunk_size = min(chunk, n)
+            rf, info, cap = stream_fit(args, src, params,
+                                       f"(b) streamed, chunk {chunk}",
+                                       trees=hist_trees, capture=True)
+            info["captured"] = check_captured_chunk(args, dev, cap,
+                                                    f"(b) chunk {chunk}")
+            del cap
+            out[f"b {chunk}"] = info
+            if chunk == STREAM_CHUNKS[0]:
+                b_trees = rf.trees
+                _, again, _ = stream_fit(
+                    args, src, params, f"(b) repeat, chunk {chunk}",
+                    trees=b_trees,
+                    profile_against=info["fit_s"] if args.profile else None)
+                out[f"b {chunk}"]["repeat_s"] = again["fit_s"]
+            del rf
+        log("  (b) the streamed trees equal phase 5 (b)'s in-memory trees at "
+            "both chunk sizes, and the repeat's")
+
+        # (c) bagging="none": device memory bounded by the chunk, not n
+        none = dataclasses.replace(params, bagging="none")
+        peaks = {}
+        for rows in (n >> 1, n):
+            sub = ArrayRowSource(src.bins_block(0, rows), src.edges,
+                                 maj_train.labels[:rows], num_classes=2,
+                                 chunk_size=min(STREAM_CHUNKS[0], rows))
+            _, info, _ = stream_fit(args, sub, none,
+                                    f"(c) bagging=none, n={rows}")
+            peaks[rows] = info["peak_bytes"]
+            out[f"c {rows}"] = info
+            del sub
+        spread = abs(peaks[n] - peaks[n >> 1])
+        log(f"  (c) peak device memory {peaks[n >> 1] / 2**20:.1f} MiB at "
+            f"n={n >> 1}, {peaks[n] / 2**20:.1f} MiB at n={n}: they differ "
+            f"by {spread / 2**20:.2f} MiB")
+        if spread >= PEAK_SPREAD:
+            fail(f"(c) the peaks differ by {spread / 2**20:.1f} MiB, not "
+                 f"less than {PEAK_SPREAD / 2**20:.0f}")
+
+        # (d) SIGKILL after a level snapshot, then resume here
+        src.chunk_size = STREAM_CHUNKS[0]
+        np.save(work / "edges.npy", src.edges)
+        np.save(work / "labels.npy", src.labels)
+        ck = work / "ckpt"
+        code = f"""
+import sys
+sys.path.insert(0, {str(src_dir)!r})
+import numpy as np
+from repro_torch.core import tree as tree_lib
+from repro_torch.core.dataset import MemmapRowSource
+from repro_torch.core.forest import RandomForest
+from repro_torch.testing import faults
+src = MemmapRowSource({str(work / 'bins.npy')!r},
+                      np.load({str(work / 'edges.npy')!r}),
+                      np.load({str(work / 'labels.npy')!r}), num_classes=2,
+                      chunk_size={src.chunk_size})
+faults.arm_kill_after_snapshots({STREAM_KILL_AFTER})
+RandomForest(tree_lib.TreeParams(**{dataclasses.asdict(params)!r}),
+             num_trees={TREES}, seed={args.seed},
+             tree_batch={TREE_BATCH}).fit_streamed(
+    src, checkpoint_dir={str(ck)!r})
+raise SystemExit("the fit was not killed")
+"""
+        t0 = time.perf_counter()
+        proc = subprocess.run([sys.executable, "-c", code],
+                              capture_output=True, text=True, timeout=600)
+        out["killed_s"] = time.perf_counter() - t0
+        if proc.returncode != -signal.SIGKILL:
+            fail(f"(d) the checkpointed fit ended with {proc.returncode}, "
+                 f"not SIGKILL:\n{proc.stderr[-3000:]}")
+        snap = checkpoint.StreamCheckpointer(ck).load_snapshot(
+            list(range(TREE_BATCH)))
+        if snap is None or int(snap["next_depth"]) != STREAM_KILL_AFTER:
+            fail("(d) the killed fit left no snapshot of its third level")
+        ck0 = checkpoint.CKPT_WALL[0]
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        rf = RandomForest(params, num_trees=TREES, seed=args.seed,
+                          tree_batch=TREE_BATCH).fit_streamed(
+            src, checkpoint_dir=str(ck), resume=True)
+        torch.cuda.synchronize()
+        out["resume_s"] = time.perf_counter() - t0
+        out["resume_ckpt_s"] = checkpoint.CKPT_WALL[0] - ck0
+        if not same_trees(rf.trees, b_trees):
+            fail("(d) the resumed forest differs from (b)'s")
+        log(f"  (d) the checkpointed fit was killed by SIGKILL after "
+            f"{STREAM_KILL_AFTER} level snapshots ({out['killed_s']:.3f} s, "
+            f"process start included); resume=True finished the forest in "
+            f"{out['resume_s']:.3f} s ({out['resume_ckpt_s']:.3f} s of it "
+            f"checkpoint writes), equal to (b)'s trees")
+    finally:
+        shutil.rmtree(work, ignore_errors=True)
+    out["phase_s"] = time.perf_counter() - t_phase
+    log(f"  phase 7 total {out['phase_s']:.1f} s")
+    log(f"  phase 7 {json.dumps(out)}")
+    return out
+
+
 def profiled(fn, unprofiled_s: float):
     """Run `fn` under torch.profiler and print where the device time went:
     the device-side span of every `level.*` / `fit.*` range, call by call
@@ -1234,9 +1508,13 @@ def phase4(args, dev, rf, test):
                                     np.float32), task="regression")
     regression = dict(task="regression", impurity="variance",
                       min_records=5)
+    entropy = dict(impurity="entropy", min_records=10)
     cases = [("exact", small, dict()),
              ("hist with subtraction", small,
               dict(split_mode="hist", num_bins=HIST_BINS)),
+             ("exact entropy", small, entropy),
+             ("exact entropy, segment backend", small,
+              dict(entropy, backend="segment")),
              ("exact regression", reg, dict(regression, max_depth=4)),
              ("hist regression", reg,
               dict(regression, split_mode="hist", num_bins=HIST_BINS))]
@@ -1311,6 +1589,9 @@ def main() -> int:
                          "one beside this script)")
     ap.add_argument("--levels-json", type=Path, default=None,
                     help=argparse.SUPPRESS)
+    ap.add_argument("--stream", action="store_true",
+                    help="build, then only fit (b) in memory and phase 7 "
+                         "(development)")
     ap.add_argument("--profile", action="store_true",
                     help="profile the repeat fit: device time per part")
     args = ap.parse_args()
@@ -1354,7 +1635,7 @@ def main() -> int:
     n_all = (1 << args.train_log2n) + TEST_ROWS
     cut = 1 << args.train_log2n
     from repro_torch.core.dataset import from_numpy
-    if not (args.exact_levels or args.hist_levels):
+    if not (args.exact_levels or args.hist_levels or args.stream):
         phase2(args, dev)
         deep_fit(args, dev)
     if args.hist_levels:
@@ -1373,6 +1654,14 @@ def main() -> int:
             args.levels_json.write_text(json.dumps(got))
         for label in got if old else ():
             compare_hist_levels(got[label], old[label], label)
+        return 0
+    if args.stream:
+        from repro_torch.kernels import feat_hist
+        maj = majority_dataset(args.seed, cut)
+        rf_b, _ = run_fit(args, maj, hist_params(args),
+                          {"feat_hist": feat_hist}, "hist (b) majority")
+        log("phase 7: streamed training")
+        phase7(args, dev, src, maj, rf_b.trees)
         return 0
     t0 = time.perf_counter()
     num, cat, y, arities = leo_dataset(args.seed, n_all)
@@ -1413,6 +1702,9 @@ def main() -> int:
 
     log("phase 6: the reference's default path")
     phase6(args, dev, train, maj_train, exact_trees, maj_exact)
+
+    log("phase 7: streamed training")
+    phase7(args, dev, src, maj_train, hist_b.pop("trees"))
 
     kernels = []
     sources = {"split_scan": ("src/repro_torch/csrc/split_scan.cu",

@@ -4,7 +4,9 @@ from `repro.core.forest`.
 `RandomForest.fit` presorts once, trains the trees in `tree_batch`-sized
 groups through `tree.build_forest` (one batched level step per depth) and
 packs them into one `PackedForest`, whose `predict_proba` descends every
-tree over the whole query batch at once.
+tree over the whole query batch at once.  `RandomForest.fit_streamed`
+trains the same hist-mode trees out of core from a `dataset.RowSource`
+(`tree.build_forest_streamed`), with optional level checkpoints.
 
 A `PackedForest` is also the forest's portable form: `save`/`load` use the
 reference's `.npz` FORMAT_VERSION 1, so a forest trained by either package
@@ -15,14 +17,14 @@ from __future__ import annotations
 
 import dataclasses
 import os
-import tempfile
 from typing import Optional
 
 import numpy as np
 import torch
 
-from repro_torch.core import bagging, importance, presort, tree as tree_lib
-from repro_torch.core.dataset import TabularDataset
+from repro_torch.core import (atomicio, bagging, checkpoint as checkpoint_lib,
+                              importance, presort, tree as tree_lib)
+from repro_torch.core.dataset import RowSource, TabularDataset
 from repro_torch.device import resolve_device
 
 
@@ -78,24 +80,19 @@ class PackedForest:
 
     def save(self, path) -> None:
         """One `.npz` with a format-version field, written atomically
-        (temporary file + `os.replace`): a crash mid-save leaves the old
-        file or the new one, never a torn one."""
+        (`atomicio.atomic_replace`): a crash mid-save leaves the old file
+        or the new one, never a torn one."""
         p = os.fspath(path)
         if not p.endswith(".npz"):
             p += ".npz"
         arrays = dict(format_version=np.int32(self.FORMAT_VERSION),
                       m_num=np.int32(self.m_num), iters=np.int32(self.iters),
                       **self.to_arrays())
-        fd, tmp = tempfile.mkstemp(dir=os.path.dirname(os.path.abspath(p)),
-                                   suffix=".tmp")
-        try:
-            with os.fdopen(fd, "wb") as f:
+
+        def write(tmp):
+            with open(tmp, "wb") as f:
                 np.savez_compressed(f, **arrays)
-            os.replace(tmp, p)
-        except BaseException:
-            if os.path.exists(tmp):
-                os.unlink(tmp)
-            raise
+        atomicio.atomic_replace(p, write)
 
     @classmethod
     def load(cls, path, device=None) -> "PackedForest":
@@ -143,7 +140,9 @@ def _forest_predict(pk: PackedForest, num, cat, reduce_mean):
         go_left = xnum <= torch.gather(pk.threshold, 1, node)
         if m_cat:
             xcat = torch.gather(cat_t, 0, (f - m_num).clamp(0, m_cat - 1))
-            cat_left = torch.gather(cm, 1, node * V + xcat.clamp(0, V - 1))
+            # jnp indexing: a negative id counts from the end, then clamps
+            xcat = torch.where(xcat < 0, xcat + V, xcat).clamp(0, V - 1)
+            cat_left = torch.gather(cm, 1, node * V + xcat)
             go_left = torch.where(torch.gather(pk.is_cat, 1, node), cat_left,
                                   go_left)
         nxt = torch.where(go_left, torch.gather(left, 1, node),
@@ -232,6 +231,11 @@ class RandomForest:
         """Train the forest: presort once (§2.1) — and in hist mode quantize
         once — then one batched level step per depth for each group of
         `tree_batch` trees."""
+        if isinstance(ds, RowSource):
+            raise TypeError(
+                "fit() trains from a fully materialized TabularDataset; "
+                "for a RowSource (out-of-core bin cache) use "
+                "fit_streamed(source)")
         dev = resolve_device(self.device)
         ds.validate()
         self.num_classes = ds.num_classes
@@ -268,16 +272,74 @@ class RandomForest:
         self.packed = pack_trees(self.trees, device=dev)
         return self
 
-    def _packed_forest(self) -> PackedForest:
+    def fit_streamed(self, source, collect_stats: bool = False,
+                     engine=None, checkpoint_dir: Optional[str] = None,
+                     checkpoint_every: int = 1,
+                     resume: bool = False) -> "RandomForest":
+        """Train the forest out of core from a `dataset.RowSource`.
+
+        The trees equal `fit`'s on the same quantized rows, node for node,
+        but the per-row state stays on the host: the device sees fixed-
+        shape chunks of the bin cache, so its memory is bounded by
+        `source.chunk_size`, not n.  Hist mode, classification and numeric
+        columns only (`tree.build_forest_streamed`).
+
+        `checkpoint_dir=` snapshots the tree batch in flight every
+        `checkpoint_every` levels and commits each finished batch, all
+        atomically; `resume=True` skips committed batches, restarts the
+        one in flight at its last snapshot, and finishes the forest as an
+        uninterrupted fit would.  Resuming against another source, params
+        or seed raises `checkpoint.CheckpointMismatchError`.
+        """
+        if isinstance(source, TabularDataset):
+            raise TypeError(
+                "fit_streamed() trains from a RowSource; wrap the dataset "
+                "with ArrayRowSource.from_dataset(ds, num_bins) (or use "
+                "plain fit(ds))")
+        if not isinstance(source, RowSource):
+            raise TypeError(f"expected a dataset.RowSource, got "
+                            f"{type(source).__name__}")
+        dev = resolve_device(self.device)
+        self.num_classes = source.num_classes
+        self.m = self.m_num = source.m_num
+        ck = None
+        if checkpoint_dir is not None:
+            ck = checkpoint_lib.StreamCheckpointer(checkpoint_dir,
+                                                   every=checkpoint_every)
+            ck.prepare(source=source, params=self.params, seed=self.seed,
+                       resume=resume)
+        tb = (max(1, min(int(self.tree_batch), self.num_trees))
+              if self.tree_batch is not None else min(self.num_trees, 16))
+        self.trees, self.level_stats = [], []
+        for lo in range(0, self.num_trees, tb):
+            trees, stats = tree_lib.build_forest_streamed(
+                source=source,
+                tree_indices=range(lo, min(lo + tb, self.num_trees)),
+                params=self.params, seed=self.seed,
+                collect_stats=collect_stats, engine=engine, resume=resume,
+                device=dev, _checkpointer=ck)
+            self.trees.extend(trees)
+            self.level_stats.extend(stats)
+        self.packed = pack_trees(self.trees, device=dev)
+        return self
+
+    def _packed_forest(self, up_to: Optional[int] = None) -> PackedForest:
+        """The packed forest, or its first `up_to` trees."""
         assert self.trees, "fit first"
         if self.packed is None or self.packed.num_trees != len(self.trees):
             self.packed = pack_trees(self.trees,
                                      device=resolve_device(self.device))
-        return self.packed
+        pk = self.packed
+        if up_to is not None and up_to < pk.num_trees:
+            pk = dataclasses.replace(
+                pk, **{k: getattr(pk, k)[:up_to] for k in pk._ARRAYS})
+        return pk
 
-    def predict_proba(self, num, cat) -> torch.Tensor:
-        """Forest-averaged distributions (B, C)."""
-        return self._packed_forest().predict_proba(num, cat)
+    def predict_proba(self, num, cat, up_to: Optional[int] = None
+                      ) -> torch.Tensor:
+        """Forest-averaged distributions (B, C), over the first `up_to`
+        trees when it is given."""
+        return self._packed_forest(up_to).predict_proba(num, cat)
 
     def predict_proba_per_tree(self, num, cat) -> torch.Tensor:
         """(T, B, C) per-tree predictions."""

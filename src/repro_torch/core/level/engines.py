@@ -112,6 +112,33 @@ class SplitEngine:
         """cand is (T, m, L+1) bool (leaf 0 = False)."""
         raise NotImplementedError
 
+    # -- out-of-core streaming ----------------------------------------------
+    #
+    # A streaming hist engine splits its table build into a chunk
+    # recurrence: `stream_init` makes the level's accumulator,
+    # `stream_accumulate` adds one row chunk (once per chunk) and
+    # `stream_finalize` turns the accumulator into the (T, m_num, L+1, B, S)
+    # tables the scorer reads (once per level).  Classification tables hold
+    # integer-valued float32 counts, so the chunked sum equals one pass
+    # whatever the chunk boundaries.
+
+    supports_stream: bool = False
+
+    def stream_init(self, T: int, st: LevelStatics, Lp: int,
+                    device: torch.device):
+        """The zero accumulator of one level of T trees."""
+        raise NotImplementedError
+
+    def stream_accumulate(self, acc, bins, leaf, w, labels, st: LevelStatics,
+                          Lp: int):
+        """acc plus the tables of one chunk: bins (m, c) packed; leaf and
+        w (T, c); labels (c,)."""
+        raise NotImplementedError
+
+    def stream_finalize(self, acc):
+        """The accumulator as merged (T, m_num, Lp+1, B, S) tables."""
+        raise NotImplementedError
+
 
 def _column_chunk(m: int, n: int, S: int) -> int:
     """Columns per chunk of a segment scorer: its (columns, n, S)
@@ -265,15 +292,30 @@ class HistNumeric(SplitEngine):
     build child of each split is scattered and its sibling derives as
     parent − sibling from the previous level's tables.  `backend` is the
     reference's label (its "kernel" and "segment" give the same tables)
-    and picks no path here.  The reference's out-of-core `stream_*`
-    methods belong to the streaming slice (ROADMAP: out-of-core and fault
-    tolerance).
+    and picks no path here.  Out of core, `stream_accumulate` builds each
+    row chunk's tables through the same `feat_hist` wrapper, with the
+    chunk's current leaf ids as slots, and adds them up.
     """
     backend: str = "segment"
 
     needs_bins = True
     bin_cut_thresholds = True
     carries_tables = True
+    supports_stream = True
+
+    def stream_init(self, T, st, Lp, device):
+        S = kops.stat_dim(st.num_classes, st.task)
+        return torch.zeros((T, st.m_num, Lp + 1, st.num_bins, S),
+                           dtype=torch.float32, device=device)
+
+    def stream_accumulate(self, acc, bins, leaf, w, labels, st, Lp):
+        with record_function("level.hist_tables"):
+            return acc.add_(kops.feature_tables(
+                bins, leaf, w, labels, B=st.num_bins, W=Lp + 1,
+                task=st.task, num_classes=st.num_classes))
+
+    def stream_finalize(self, acc):
+        return acc
 
     def supersplits(self, inp, st, Lp, cand):
         Wb = Lp // 2 + 1 if st.subtract else Lp + 1

@@ -15,6 +15,11 @@ axis T is written out in every tensor, and the next level's totals are
 reduced on the flat (tree, segment) index space in one scatter.  Only the
 small per-leaf struct goes back to the host.
 
+Out of core, `tree.build_forest_streamed` runs a level as three steps
+instead (`_stream_chunk_step` once per row chunk, then
+`_stream_finalize_step` and `_stream_score_step` once), built from the
+same candidate draw, condition evaluation, winner and child-id code.
+
 Each part of a level runs inside a `record_function` range named
 `level.<part>`, so a `torch.profiler` trace (`chip_smoke.py --profile`)
 attributes the level's device time to its parts; outside a profiler the
@@ -28,7 +33,7 @@ from typing import Optional
 import torch
 from torch.profiler import record_function
 
-from repro_torch.core import bagging, presort
+from repro_torch.core import bagging, presort, splits
 from repro_torch.core.level.engines import (CategoricalTable, ExactNumeric,
                                             HistNumeric, LevelInputs,
                                             LevelStatics, SplitEngine)
@@ -308,20 +313,54 @@ def _level_step_core(inp: LevelInputs, splittable_p, fkeys, depth, *,
         gains_parts.append(g)
     with record_function("level.reassign"):
         struct, new_leaf_of, part = _merge_and_reassign(
-            inp, plan, splittable_p, gains_parts, thr_num, masks, Lp)
+            inp, plan, splittable_p, gains_parts, thr_num, masks)
     return struct, new_leaf_of, tables, part
 
 
-def _merge_and_reassign(inp, plan, splittable_p, gains_parts, thr_num, masks,
-                        Lp):
+def _merge_and_reassign(inp, plan, splittable_p, gains_parts, thr_num,
+                        masks):
     """Cross-feature winner per leaf, child ids, condition evaluation and
     leaf reassignment (Alg. 2 steps 3-6).  Returns (struct, new leaf_of,
     (bits, new_left, new_right))."""
+    dec = _winners(torch.cat(gains_parts, 1), thr_num, masks, splittable_p,
+                   plan)
+    # Alg. 2 steps 5-6: 1-bit condition per row, reassign to the children
+    bits = _eval_conditions_core(inp.num_cols, inp.cat_cols, inp.leaf_of,
+                                 dec["feat_of_leaf"], dec["thr"],
+                                 dec["iscat_of_leaf"], dec["mask"],
+                                 plan.m_num,
+                                 bin_of=inp.bin_of if plan.use_bin_cuts
+                                 else None)
+    new_leaf_of = _reassign(inp.leaf_of, bits, dec["new_left"],
+                            dec["new_right"])
+    struct = {k: dec[k] for k in ("best_feat", "best_gain", "thr", "mask",
+                                  "will_split")}
+    return struct, new_leaf_of, (bits, dec["new_left"], dec["new_right"])
+
+
+def _reassign(leaf_of, bits, new_left, new_right):
+    """Alg. 2 step 6: each open row moves to its leaf's left or right
+    child (`bits` True = left); closed rows stay at 0.  (T, n) int32."""
+    lf = leaf_of.long()
+    return torch.where(
+        leaf_of > 0,
+        torch.where(bits, torch.gather(new_left, 1, lf),
+                    torch.gather(new_right, 1, lf)), 0).to(torch.int32)
+
+
+def _winners(all_gains, thr_num, masks, splittable_p, plan):
+    """Cross-feature winner per leaf and the child ids (Alg. 2 steps 3-4).
+
+    all_gains (T, m, L+1) numeric then categorical gains; thr_num (T,
+    max(m_num, 1), L+1); masks (T, m_cat, L+1, V) or None.  Returns the
+    per-leaf (T, L+1) decisions: best_feat / best_gain, will_split,
+    new_left / new_right (consecutive 1-based child ids, 0 = closed),
+    feat_of_leaf, thr (the winning threshold, or bin index in hist mode),
+    iscat_of_leaf and mask (T, L+1, V).
+    """
     m_num, m_cat = plan.m_num, plan.m_cat
-    T = inp.leaf_of.shape[0]
-    L1 = Lp + 1
-    dev = inp.leaf_of.device
-    all_gains = torch.cat(gains_parts, 1)                      # (T, m, L1)
+    T, _, L1 = all_gains.shape
+    dev = all_gains.device
 
     # the tree builder merges partial supersplits: first feature wins ties
     best_feat = all_gains.argmax(1)                            # (T, L1)
@@ -349,22 +388,11 @@ def _merge_and_reassign(inp, plan, splittable_p, gains_parts, thr_num, masks,
     else:
         mask_of_leaf = torch.zeros((T, L1, plan.max_arity), dtype=torch.bool,
                                    device=dev)
-
-    # Alg. 2 steps 5-6: 1-bit condition per row, reassign to the children
-    bits = _eval_conditions_core(inp.num_cols, inp.cat_cols, inp.leaf_of,
-                                 feat_of_leaf, thr_of_leaf, iscat_of_leaf,
-                                 mask_of_leaf, m_num,
-                                 bin_of=inp.bin_of if plan.use_bin_cuts
-                                 else None)
-    lf = inp.leaf_of.long()
-    new_leaf_of = torch.where(
-        inp.leaf_of > 0,
-        torch.where(bits, torch.gather(new_left, 1, lf),
-                    torch.gather(new_right, 1, lf)), 0).to(torch.int32)
-    struct = {"best_feat": best_feat.to(torch.int32), "best_gain": best_gain,
-              "thr": thr_of_leaf, "mask": mask_of_leaf,
-              "will_split": will_split}
-    return struct, new_leaf_of, (bits, new_left, new_right)
+    return {"best_feat": best_feat.to(torch.int32), "best_gain": best_gain,
+            "thr": thr_of_leaf, "mask": mask_of_leaf,
+            "will_split": will_split, "new_left": new_left,
+            "new_right": new_right, "feat_of_leaf": feat_of_leaf,
+            "iscat_of_leaf": iscat_of_leaf}
 
 
 def _fused_level_step_batched(inp: LevelInputs, splittable_p, fkeys, depth,
@@ -413,3 +441,91 @@ def _fused_level_step_batched(inp: LevelInputs, splittable_p, fkeys, depth,
             ord_idx = _partition_leaf_order(
                 ord_idx, lf_pos, *part, inp.row_counts, struct["key_counts"])
     return struct, new_leaf_of, next_totals, tables, ord_idx
+
+
+# ---------------------------------------------------------------------------
+# Out-of-core streaming level steps
+# ---------------------------------------------------------------------------
+#
+# `tree.build_forest_streamed` splits a level into three steps, so that no
+# n-sized state has to exist on the device:
+#
+#   _stream_chunk_step     per row chunk: replay the PREVIOUS level's
+#                          winning conditions on the chunk's bins (the
+#                          `_eval_conditions_core` bin path and
+#                          `_reassign`) and add the chunk into the
+#                          engine's table accumulator (at the last level,
+#                          into the per-leaf totals only);
+#   _stream_finalize_step  per level: the merged tables and the per-leaf
+#                          totals the host reads for node values;
+#   _stream_score_step     per level: candidate draw, histogram scoring,
+#                          and the in-memory level's `_winners`, on the
+#                          (T, m, L+1, B, S) tables alone.
+#
+# Classification tables are integer-valued float32 counts, so the chunked
+# sum equals the one-pass table, and everything after the tables is the
+# in-memory path's own code: streamed fits grow the in-memory trees.
+
+# chunk steps run (both kinds: table chunks and last-level totals chunks)
+_STREAM_CHUNK_CALLS = [0]
+
+
+def _stream_chunk_step(bins_c, labels_c, w_c, leaf_prev_c, dec, acc, *,
+                       plan: LevelPlan, Lp: int, root: bool,
+                       need_tables: bool):
+    """Add one row chunk into the level's accumulator.
+
+    bins_c (m_num, c) packed; labels_c (c,); w_c / leaf_prev_c (T, c) the
+    bag weights and the previous level's leaf ids; dec = (feat_of_leaf,
+    cut_of_leaf, new_left, new_right), each (T, Lpp+1), the previous
+    level's decisions (unused at the root).  acc is the engine's table
+    accumulator, or (T, Lp+1, S) per-leaf totals without `need_tables`
+    (the last level).  Returns (leaf_c (T, c) int32, the chunk's
+    current-level leaf ids, and acc, updated in place).  Pad rows ride
+    with w = 0 and leaf 0: they stay closed and add nothing.
+    """
+    _STREAM_CHUNK_CALLS[0] += 1
+    if root:
+        leaf_c = leaf_prev_c
+    else:
+        with record_function("level.reassign"):
+            feat_of_leaf, cut_of_leaf, new_left, new_right = dec
+            no_cat = torch.zeros((0, leaf_prev_c.shape[1]), dtype=torch.int32,
+                                 device=leaf_prev_c.device)
+            bits = _eval_conditions_core(None, no_cat, leaf_prev_c,
+                                         feat_of_leaf, cut_of_leaf, None,
+                                         None, plan.m_num, bin_of=bins_c)
+            leaf_c = _reassign(leaf_prev_c, bits, new_left, new_right)
+    if need_tables:
+        return leaf_c, plan.numeric.stream_accumulate(
+            acc, bins_c, leaf_c, w_c, labels_c, plan.statics, Lp)
+    with record_function("level.next_totals"):
+        stats_c = splits.row_stats(labels_c, w_c, plan.num_classes,
+                                   plan.task)
+        acc.add_(_leaf_totals(leaf_c, stats_c, w_c, Lp, plan.task))
+    return leaf_c, acc
+
+
+def _stream_finalize_step(acc, *, plan: LevelPlan):
+    """(merged (T, m, L+1, B, S) tables, totals (T, L+1, S)).  The totals
+    are column 0's table summed over its bins: every in-bag row lands in
+    exactly one bin, so for integer-valued classification counts this is
+    the per-row sum bit for bit."""
+    merged = plan.numeric.stream_finalize(acc)
+    return merged, merged[:, 0].sum(2)
+
+
+def _stream_score_step(tables, splittable_p, fkeys, depth, *,
+                       plan: LevelPlan, Lp: int):
+    """Score one level from merged tables: the candidate draw, histogram
+    scoring and the in-memory level's winner and child ids, with no row
+    state (numeric hist columns only).  Returns `_winners`' decisions:
+    `thr` holds winning BIN INDICES, and feat_of_leaf / thr / new_left /
+    new_right are what the next level's chunk steps replay."""
+    with record_function("level.candidates"):
+        cand = _candidates(fkeys, depth, splittable_p, Lp, plan)
+    with record_function("level.hist_score"):
+        g, cuts = splits.best_numeric_split_histogram(
+            tables, cand[:, :plan.m_num], plan.impurity, plan.task,
+            plan.min_records)
+    return _winners(g, cuts, None, splittable_p, plan)

@@ -1,5 +1,6 @@
 """Level-by-level decision tree builders (paper Alg. 2) + flat tree arrays,
-ported from `repro.core.tree` (exact and hist mode, in memory).
+ported from `repro.core.tree` (exact and hist mode in memory, hist mode out
+of core).
 
 The tree builder is the control plane (host Python, like the paper's tree
 builder workers, which never touch the dataset); the per-level supersplit
@@ -10,7 +11,9 @@ the dataset is scanned once per candidate feature per LEVEL.
   * `build_forest` — a whole batch of trees per level step (explicit tree
     axis), one small per-leaf struct fetched per level;
   * `build_tree` — a one-tree `build_forest` (the reference asserts the
-    two are bit-identical, so the port defines one by the other).
+    two are bit-identical, so the port defines one by the other);
+  * `build_forest_streamed` — a batch of hist-mode trees from a
+    `dataset.RowSource`, one row chunk at a time, with level checkpoints.
 """
 from __future__ import annotations
 
@@ -23,11 +26,16 @@ import numpy as np
 import torch
 from torch.profiler import record_function
 
-from repro_torch.core import (bagging, class_list, presort, prng, pruning,
-                              splits)
+from repro_torch.core import (bagging, checkpoint as checkpoint_lib,
+                              class_list, dataset as dataset_lib, presort,
+                              prng, pruning, splits)
 from repro_torch.core.level.engines import LevelInputs, SplitEngine
 from repro_torch.core.level.plan import (_fused_level_step_batched,
-                                         _leaf_totals, _pad_leaves, make_plan)
+                                         _leaf_totals, _pad_leaves,
+                                         _stream_chunk_step,
+                                         _stream_finalize_step,
+                                         _stream_score_step, make_plan)
+from repro_torch.device import resolve_device
 
 
 # ---------------------------------------------------------------------------
@@ -84,6 +92,19 @@ class Tree:
     @property
     def max_depth_reached(self) -> int:
         return int(self.depth.max()) if self.num_nodes else 0
+
+    def node_density(self) -> float:
+        """Paper §5: #leaves / 2^D for the deepest depth D."""
+        d = self.max_depth_reached
+        return self.num_leaves / float(2 ** d) if d else 1.0
+
+    def sample_density(self) -> float:
+        """Paper §5: the share of in-bag weight reaching depth-D leaves."""
+        d = self.max_depth_reached
+        leaves = self.feature < 0
+        bottom = leaves & (self.depth == d)
+        tot = self.n_node[leaves].sum()
+        return float(self.n_node[bottom].sum() / tot) if tot > 0 else 0.0
 
     def predict_raw(self, num, cat, device=None) -> torch.Tensor:
         """(B, C) distributions / (B, 1) means."""
@@ -241,6 +262,13 @@ def _num_candidates(params, m: int) -> int:
         1, math.isqrt(m) + (0 if math.isqrt(m) ** 2 == m else 1))
 
 
+def _forest_keys(seed: int, tidx: list, dev) -> torch.Tensor:
+    """The per-tree candidate-draw keys (T, 2): fold_in(PRNGKey(seed ^
+    0x5EED), t), as the reference draws them."""
+    return prng.fold_in(prng.prng_key(seed ^ 0x5EED, dev)[None, :],
+                        torch.as_tensor(tidx, dtype=torch.int64, device=dev))
+
+
 def _check_params(params) -> None:
     if params.split_mode not in ("exact", "hist"):
         raise ValueError(f"unknown split_mode {params.split_mode!r} "
@@ -374,8 +402,7 @@ def build_forest(
         w = bagging.bag_counts_forest(seed, tidx, n, params.bagging, dev)
         stats = splits.row_stats(labels, w, num_classes, task)   # (T, n, S)
     S_dim = int(stats.shape[-1])
-    fkeys = prng.fold_in(prng.prng_key(seed ^ 0x5EED, dev)[None, :],
-                         torch.as_tensor(tidx, dtype=torch.int64, device=dev))
+    fkeys = _forest_keys(seed, tidx, dev)
 
     def cnt_np(t):
         return t.sum(-1) if task == "classification" else t[..., 0]
@@ -529,3 +556,386 @@ def build_tree(*, tree_idx: int, **kw) -> tuple[Tree, list[LevelStats]]:
     `tree_idx` in place of `tree_indices`)."""
     trees, logs = build_forest(tree_indices=[tree_idx], **kw)
     return trees[0], logs[0]
+
+
+# ---------------------------------------------------------------------------
+# The out-of-core streamed forest driver
+# ---------------------------------------------------------------------------
+
+# Host seconds of the streamed driver's parts, summed over every level of
+# every streamed fit since a caller last set them to 0: "read" (the
+# source's chunk reads), "stage" (filling the staging buffer and starting
+# its copy), "chunk" (launching the chunk steps), "fetch" (waiting for each
+# chunk's leaf ids and writing them back: the device time of the chunk
+# lands here), "score" (finalize, score and the level's host bookkeeping).
+STREAM_SECONDS = dict.fromkeys(("read", "stage", "chunk", "fetch", "score"),
+                               0.0)
+
+
+class _ChunkStage:
+    """One level's staging buffer for row chunks of T trees.
+
+    A chunk's labels, bag weights, leaf ids and bins are packed into one
+    host buffer, pinned when the fit runs on CUDA, and go to the device in
+    one non-blocking copy; the buffer is refilled only once that copy's
+    event has completed.  On the CPU the buffer itself is the chunk the
+    steps read.  Rows past a short last chunk are zero: leaf 0 and w = 0,
+    so they add nothing.  uint16 bins travel as their int16 bits.
+    """
+
+    def __init__(self, T: int, m: int, C: int, num_bins: int, dev):
+        self.cuda = dev.type == "cuda"
+        wide = num_bins > 256
+        sizes = (C * 4, T * C * 4, T * C * 4, m * C * (2 if wide else 1))
+        offs = np.cumsum((0,) + sizes).tolist()
+        self.host = torch.empty(offs[-1], dtype=torch.uint8,
+                                pin_memory=self.cuda)
+        self.buf = (torch.empty(offs[-1], dtype=torch.uint8, device=dev)
+                    if self.cuda else self.host)
+
+        def views(b):
+            bins = b[offs[3]:offs[4]]
+            bins = (bins.view(torch.int16).view(m, C) if wide
+                    else bins.view(m, C))
+            return (bins, b[offs[0]:offs[1]].view(torch.int32),
+                    b[offs[1]:offs[2]].view(torch.float32).view(T, C),
+                    b[offs[2]:offs[3]].view(torch.int32).view(T, C))
+
+        # host numpy views (filled), device views (read by the steps)
+        self.np = [t.numpy() for t in views(self.host)]
+        if wide:
+            self.np[0] = self.np[0].view(np.uint16)
+        bins, *rest = views(self.buf)
+        self.dev = (bins.view(torch.uint16) if wide else bins, *rest)
+        self.leaf_back = torch.empty((T, C), dtype=torch.int32,
+                                     pin_memory=self.cuda)
+        self.copied = None
+
+    def load(self, bins, labels, w, leaf) -> tuple:
+        """Stage one chunk (bins (m, c); labels (c,); w / leaf (T, c)) and
+        start its copy; returns the device tensors (bins, labels, w,
+        leaf), each C rows wide."""
+        if self.copied is not None:
+            self.copied.synchronize()
+        c = bins.shape[1]
+        for dst, src in zip(self.np, (bins, labels, w, leaf)):
+            dst[..., :c] = src
+            dst[..., c:] = 0
+        if self.cuda:
+            self.buf.copy_(self.host, non_blocking=True)
+            self.copied = torch.cuda.Event()
+            self.copied.record()
+        return self.dev
+
+    def fetch(self, leaf_c: torch.Tensor, c: int) -> np.ndarray:
+        """The chunk's first c leaf ids (T, c) on the host, once the
+        device has computed them."""
+        if not self.cuda:
+            return leaf_c.numpy()[:, :c]
+        self.leaf_back.copy_(leaf_c, non_blocking=True)
+        done = torch.cuda.Event()
+        done.record()
+        done.synchronize()
+        return self.leaf_back.numpy()[:, :c]
+
+
+def _check_streamable(source, params) -> None:
+    """The reference's restrictions on a streamed fit, with its errors."""
+    if not isinstance(source, dataset_lib.RowSource):
+        raise TypeError(
+            f"build_forest_streamed needs a dataset.RowSource, got "
+            f"{type(source).__name__}: wrap the data with "
+            f"ArrayRowSource.from_dataset / MemmapRowSource.build")
+    if params.split_mode != "hist":
+        raise ValueError(
+            "streaming training requires split_mode='hist': exact mode "
+            "needs the full presorted order, which cannot be built from a "
+            "disk-backed source (exact needs the presort; only hist "
+            "streams)")
+    if params.task != "classification" or source.task != "classification":
+        raise ValueError(
+            "streaming training is classification-only: its chunked table "
+            "accumulation is exact because classification tables hold "
+            "integer-valued counts; regression y-sums could drift")
+    if source.m_num < 1:
+        raise ValueError("streaming training needs >= 1 numeric column")
+    if source.num_bins != params.num_bins:
+        raise ValueError(
+            f"RowSource was quantized with num_bins={source.num_bins} but "
+            f"TreeParams has num_bins={params.num_bins}: rebuild the "
+            f"source or match the params")
+
+
+def build_forest_streamed(
+    *,
+    source,
+    params: TreeParams, seed: int, tree_indices,
+    collect_stats: bool = False,
+    engine: Optional[SplitEngine] = None,
+    checkpoint_dir: Optional[str] = None,
+    checkpoint_every: int = 1,
+    resume: bool = False,
+    device=None,
+    _checkpointer=None,
+) -> tuple[list[Tree], list[list[LevelStats]]]:
+    """Train a batch of hist-mode trees from a `dataset.RowSource`.
+
+    The dataset never exists on the device (nor, from a `MemmapRowSource`,
+    in host memory).  Each depth level streams fixed-shape row chunks of
+    the bin cache through `_stream_chunk_step`, which replays the previous
+    level's winning conditions on the chunk and adds its tables into the
+    engine's accumulator (the `feat_hist` kernel on the card); then one
+    `_stream_finalize_step` and one `_stream_score_step` pick the level's
+    splits from the tables alone.  Leaf ids, labels and bag weights live in
+    host (T, n) arrays; each chunk goes to the device through one staging
+    buffer (`_ChunkStage`) and its new leaf ids come back before the next
+    chunk (one sync per chunk).  Device memory is bounded by the chunk
+    size and the table width, not by n: the one n-sized device transient
+    is the Poisson or multinomial draw of one tree's bag weights, and with
+    `bagging="none"` there is none.
+
+    Restrictions (as the reference's, with its errors): hist mode,
+    classification, numeric columns only, and `params.num_bins` equal to
+    the source's.  The plan always builds plain tables (no subtraction:
+    every chunk is read anyway), and a single device (row_shards = 1).
+
+    The trees equal `build_forest`'s on the same quantized rows, node for
+    node, at any chunk size.
+
+    Fault tolerance: with `checkpoint_dir=` the driver writes an atomic
+    snapshot of its host state every `checkpoint_every` completed levels
+    (`core.checkpoint`), and `resume=True` restarts from the last snapshot
+    (or returns a batch that already completed) and grows the trees an
+    uninterrupted fit grows.  Chunk reads are retried with backoff on
+    transient `OSError`s; a read that keeps failing writes the held
+    snapshot and raises `dataset.StreamReadError`.
+
+    Returns (trees, stats_logs), parallel lists over `tree_indices`.
+    """
+    _check_streamable(source, params)
+    dev = resolve_device(device)
+    ck = _checkpointer
+    if ck is None and checkpoint_dir is not None:
+        ck = checkpoint_lib.StreamCheckpointer(checkpoint_dir,
+                                               every=checkpoint_every)
+        ck.prepare(source=source, params=params, seed=seed, resume=resume)
+    if ck is not None and resume:
+        done = ck.load_batch(tree_indices)
+        if done is not None:            # committed by an earlier run
+            return done
+
+    m_num = source.m_num
+    m_prime = _num_candidates(params, m_num)
+    plan = make_plan(dataclasses.replace(params, hist_subtract=False),
+                     m_num=m_num, m_cat=0, max_arity=1,
+                     num_classes=source.num_classes, m_prime=m_prime,
+                     engine=engine)
+    if not plan.numeric.supports_stream:
+        raise ValueError(f"engine {plan.numeric!r} does not support chunked "
+                         f"accumulation (supports_stream)")
+    task = params.task
+    num_classes = source.num_classes
+    n = source.n
+    edges_np = source.edges
+    tidx = [int(t) for t in tree_indices]
+    T = len(tidx)
+    if T < 1:
+        raise ValueError("build_forest_streamed needs at least one tree")
+
+    # host per-row state: labels, bag weights, leaf ids
+    labels_np = np.ascontiguousarray(source.labels, np.int32)
+    if params.bagging == "none":
+        w_np = np.ones((T, n), np.float32)
+    else:
+        # one tree's draw on the device at a time, equal to
+        # bag_counts_forest's row: the one n-sized device transient
+        w_np = np.empty((T, n), np.float32)
+        with record_function("fit.bagging"):
+            for i, t in enumerate(tidx):
+                w_np[i] = bagging.bag_counts(seed, t, n, params.bagging,
+                                             dev).cpu().numpy()
+    fkeys = _forest_keys(seed, tidx, dev)
+
+    accs = [_NodeAccum(num_classes, task) for _ in range(T)]
+    open_nodes = [[a.new_node(0)] for a in accs]
+    stats_logs: list[list[LevelStats]] = [[] for _ in range(T)]
+    leaf_np = np.ones((T, n), np.int32)
+    active = None                   # original row ids of the active rows
+    n_act = n
+    Ls = [1] * T
+    start_depth = 0
+    chunk = max(1, int(source.chunk_size))
+    # the previous level's decisions, which the chunk steps replay
+    dec = (torch.zeros((T, 1), dtype=torch.int32, device=dev),
+           torch.zeros((T, 1), dtype=torch.float32, device=dev),
+           torch.zeros((T, 1), dtype=torch.int32, device=dev),
+           torch.zeros((T, 1), dtype=torch.int32, device=dev))
+    Lpp = 0
+    S_dim = num_classes
+
+    if ck is not None and resume:
+        snap = ck.load_snapshot(tidx)
+        if snap is not None:
+            # the end-of-level state; labels and bag weights were not
+            # stored: they come from the source and the seeded draws as a
+            # fresh fit makes them, compacted by the stored row map
+            st = checkpoint_lib.unpack_stream_state(
+                snap, num_classes=num_classes, task=task)
+            start_depth = st["next_depth"]
+            Ls, Lpp = st["Ls"], st["Lpp"]
+            accs, open_nodes = st["accs"], st["open_nodes"]
+            stats_logs = st["stats_logs"]
+            leaf_np, active = st["leaf"], st["active"]
+            n_act = leaf_np.shape[1]
+            if active is not None:
+                labels_np = np.ascontiguousarray(labels_np[active])
+                w_np = np.ascontiguousarray(w_np[:, active])
+            dec = tuple(torch.as_tensor(d, device=dev) for d in st["dec"])
+
+    retry_kw = dict(attempts=source.retry_attempts,
+                    base_delay=source.retry_base_delay,
+                    max_delay=source.retry_max_delay,
+                    sleep=source.retry_sleep)
+    spans = STREAM_SECONDS
+
+    for depth in range(start_depth, params.max_depth + 1):
+        if max(Ls) == 0:
+            break
+        t_level = time.perf_counter()
+        Lp = _pad_leaves(max(Ls), params.leaf_pad)
+        at_max_depth = depth >= params.max_depth
+        need_tables = not at_max_depth
+
+        # --- chunk pass: reassign, then accumulate ---------------------
+        if need_tables:
+            acc = plan.numeric.stream_init(T, plan.statics, Lp, dev)
+        else:           # the last level: per-leaf stat totals only
+            acc = torch.zeros((T, Lp + 1, S_dim), dtype=torch.float32,
+                              device=dev)
+        C = max(1, min(chunk, n_act))
+        stage = _ChunkStage(T, m_num, C, params.num_bins, dev)
+        for lo in range(0, n_act, C):
+            hi = min(lo + C, n_act)
+            t0 = time.perf_counter()
+            try:
+                with record_function("stream.read"):
+                    block = dataset_lib.read_with_retry(
+                        *((source.bins_block, lo, hi) if active is None
+                          else (source.bins_take, active[lo:hi])),
+                        **retry_kw)
+            except dataset_lib.StreamReadError:
+                if ck is not None:      # keep the last completed level, so
+                    ck.flush()          # that a resume loses only this one
+                raise
+            t1 = time.perf_counter()
+            with record_function("stream.stage"):
+                bins_c, labels_c, w_c, leaf_prev_c = stage.load(
+                    block, labels_np[lo:hi], w_np[:, lo:hi],
+                    leaf_np[:, lo:hi])
+            t2 = time.perf_counter()
+            leaf_c, acc = _stream_chunk_step(
+                bins_c, labels_c, w_c, leaf_prev_c, dec, acc, plan=plan,
+                Lp=Lp, root=depth == 0, need_tables=need_tables)
+            t3 = time.perf_counter()
+            with record_function("stream.fetch"):
+                leaf_np[:, lo:hi] = stage.fetch(leaf_c, hi - lo)
+            t4 = time.perf_counter()
+            spans["read"] += t1 - t0
+            spans["stage"] += t2 - t1
+            spans["chunk"] += t3 - t2
+            spans["fetch"] += t4 - t3
+        t_score = time.perf_counter()
+        del stage
+
+        # --- finalize: merged tables and per-leaf totals -----------------
+        if need_tables:
+            merged, totals_dev = _stream_finalize_step(acc, plan=plan)
+            totals_np = totals_dev.cpu().numpy()
+        else:
+            merged, totals_np = None, acc.cpu().numpy()
+        del acc
+        counts = totals_np.sum(-1)                        # classification
+        for t in range(T):
+            for h in range(1, Ls[t] + 1):
+                accs[t].set_value(open_nodes[t][h - 1], totals_np[t, h],
+                                  counts[t, h], task)
+
+        splittable_p = np.zeros((T, Lp + 1), bool)
+        if not at_max_depth:
+            for t in range(T):
+                if Ls[t]:
+                    splittable_p[t, 1:Ls[t] + 1] = \
+                        counts[t, 1:Ls[t] + 1] >= 2 * params.min_records
+        if not splittable_p.any():
+            spans["score"] += time.perf_counter() - t_score
+            break                       # the node values are written
+
+        # --- score: one step on the tables alone -------------------------
+        res = _stream_score_step(merged, torch.as_tensor(splittable_p,
+                                                         device=dev),
+                                 fkeys, depth, plan=plan, Lp=Lp)
+        del merged
+        with record_function("level.host_fetch"):
+            host = {k: res[k].cpu().numpy() for k in
+                    ("best_feat", "best_gain", "thr", "will_split")}
+        dec = (res["feat_of_leaf"], res["thr"], res["new_left"],
+               res["new_right"])
+        Lpp = Lp
+        wall = time.perf_counter() - t_level
+
+        ws = host["will_split"]
+        no_mask = np.zeros((Lp + 1, 1), bool)             # numeric only
+        Ls_next = [0] * T
+        for t in range(T):
+            if Ls[t] == 0:
+                continue
+            host_t = {k: host[k][t] for k in
+                      ("best_feat", "best_gain", "thr", "will_split")}
+            host_t["mask"] = no_mask
+            next_open, any_split = _grow_level(
+                accs[t], open_nodes[t], host_t, Ls[t], m_num, depth,
+                edges_np=edges_np)
+            if collect_stats:
+                Lp_t = _pad_leaves(Ls[t], params.leaf_pad)
+                passes = int(min(m_prime * (1 if params.usb else Ls[t]),
+                                 m_num))
+                stats_logs[t].append(LevelStats(
+                    depth=depth, open_leaves=Ls[t],
+                    network_bits_bitmap=int(counts[t, 1:Ls[t] + 1].sum()),
+                    network_bits_supersplit=int(m_num * (Lp_t + 1) * 64),
+                    class_list_bits=class_list.storage_bits(n_act, Ls[t]),
+                    feature_passes=passes, rows_scanned=n_act * passes,
+                    wall_seconds=wall,
+                    hist_table_bytes=m_num * (Lp_t + 1) * params.num_bins
+                    * S_dim * 4))
+            if any_split:
+                open_nodes[t] = next_open
+            Ls_next[t] = 2 * int(ws[t, 1:Ls[t] + 1].sum())
+        Ls = Ls_next
+
+        # --- Sprint pruning on the host: drop rows closed in every tree --
+        if params.prune_closed_frac < 1.0 and n_act > 0 and max(Ls) > 0:
+            open_any = (leaf_np > 0).any(axis=0)
+            closed = n_act - int(open_any.sum())
+            if closed > 0 and closed / n_act >= params.prune_closed_frac:
+                keep = np.flatnonzero(open_any)
+                active = keep if active is None else active[keep]
+                leaf_np = np.ascontiguousarray(leaf_np[:, keep])
+                w_np = np.ascontiguousarray(w_np[:, keep])
+                labels_np = np.ascontiguousarray(labels_np[keep])
+                n_act = len(keep)
+
+        # the end-of-level state.  The last level's is never written:
+        # finish_batch commits the trees right after the loop, and a crash
+        # in between resumes from the previous snapshot
+        if ck is not None and depth < params.max_depth:
+            ck.save_snapshot(tidx, depth, checkpoint_lib.pack_stream_state(
+                tidx=tidx, depth=depth, Ls=Ls, leaf_np=leaf_np,
+                active=active, dec=dec, Lpp=Lpp, accs=accs,
+                open_nodes=open_nodes, stats_logs=stats_logs))
+        spans["score"] += time.perf_counter() - t_score
+
+    trees = [_assemble_tree(a, 1, m_num, task) for a in accs]
+    if ck is not None:
+        ck.finish_batch(tidx, trees, stats_logs)
+    return trees, stats_logs

@@ -100,3 +100,41 @@ def test_tree_predict_raw_matches_reference(fitted):
         np.testing.assert_array_equal(
             b.predict_raw(test.num, test.cat, device="cpu").numpy(),
             np.asarray(a.predict_raw(test.num, test.cat)))
+
+
+@pytest.mark.parametrize("which", ["-1", "-V", "V", "-V-1"])
+def test_out_of_range_category_ids_route_as_reference(fitted, which):
+    """Every categorical id set to -1, -V, V or -V-1 (V = the forest's
+    widest arity): the reference's jnp indexing counts a negative id from
+    the end (-1 reads category V-1, -V category 0) and clamps the rest,
+    and the port's predictions follow it."""
+    _, r, p, _, test = fitted
+    assert any(t.is_cat.any() for t in p.trees)
+    V = p.packed.cat_mask.shape[-1]
+    cat = np.full_like(np.asarray(test.cat),
+                       {"-1": -1, "-V": -V, "V": V, "-V-1": -V - 1}[which])
+    num = np.asarray(test.num)
+    np.testing.assert_array_equal(p.predict_proba(num, cat).numpy(),
+                                  np.asarray(r.predict_proba(num, cat)))
+    for a, b in zip(r.trees, p.trees):
+        np.testing.assert_array_equal(
+            b.predict_raw(num, cat, device="cpu").numpy(),
+            np.asarray(a.predict_raw(num, cat)))
+
+
+def test_depth_metrics_match_reference(fitted):
+    """Paper §5's node and sample densities of each tree."""
+    _, r, p, _, _ = fitted
+    for a, b in zip(r.trees, p.trees):
+        assert b.node_density() == a.node_density()
+        assert b.sample_density() == a.sample_density()
+        assert 0.0 < b.sample_density() <= 1.0
+
+
+@pytest.mark.parametrize("up_to", [1, 3, 4, 9])
+def test_predict_proba_up_to_matches_reference(fitted, up_to):
+    _, r, p, _, test = fitted
+    np.testing.assert_array_equal(
+        p.predict_proba(test.num, test.cat, up_to=up_to).numpy(),
+        np.asarray(r.predict_proba(test.num, test.cat, up_to=up_to)))
+    assert p._packed_forest(up_to).num_trees == min(up_to, 4)

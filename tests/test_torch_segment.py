@@ -331,8 +331,10 @@ def test_segment_scorers_on_card_equal_cpu(cuda, task, impurity, C,
     dict(min_records=40, prune_closed_frac=0.05),
     dict(split_mode="hist", num_bins=64, min_records=40,
          prune_closed_frac=0.05),
-    dict(task="regression", impurity="variance", min_records=10)],
-    ids=["default", "multinomial", "pruned", "hist-pruned", "regression"])
+    dict(task="regression", impurity="variance", min_records=10),
+    dict(impurity="entropy", min_records=10)],
+    ids=["default", "multinomial", "pruned", "hist-pruned", "regression",
+         "entropy"])
 def test_segment_forest_on_card_equals_cpu_fit(cuda, params):
     """Default-backend fits on the card grow the CPU fit's trees (bit for
     bit; regression: the structure, values within 1e-5) and repeat
