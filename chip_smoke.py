@@ -1,7 +1,7 @@
 #!/usr/bin/env python3
 """Drive the PyTorch/H100 port (`src/repro_torch`) on one CUDA card.
 
-    python3 chip_smoke.py [--seed S]
+    python3 chip_smoke.py [--seed S] [--profile]
 
 Phases, each fatal on failure:
   0. the card (nvidia-smi name and power limit), torch and CUDA versions;
@@ -64,9 +64,33 @@ Phases, each fatal on failure:
      `bagging="none"` fits of n/2 and n rows at chunk 2^20, whose peaks
      must differ by less than 64 MiB; (d) the 2^20 fit in a subprocess
      with `checkpoint_dir`, killed by SIGKILL after its third level
-     snapshot, then `resume=True` here, which must grow (b)'s trees.
-Prints a JSON line with every kernel's numbers, the nvidia-smi line, and
-last `{"ok": true, "device": {...}}`.  Exits non-zero without a GPU.
+     snapshot, then `resume=True` here, which must grow (b)'s trees;
+  8. boosted trees, `GBTModel(GBTParams(...)).fit` on phase 3's rows (20
+     rounds, depth 4, all 82 columns candidates), each fit with the launch
+     and level-step counters set to 0 just before and read just after,
+     each kernel of its path launched once per level step and no other:
+     (a) `loss="logistic"` (segment: cat_hist), (b) the same with
+     `backend="kernel"` (split_scan, cat_hist), (c) `split_mode="hist"`
+     (feat_hist, cat_hist), (d) `loss="squared"` on `regression_target`
+     (cat_hist); a repeat fit must grow identical rounds, each kernel is
+     held against its plain version on the repeat's deepest level of the
+     last round, and the held-out AUC must pass 0.6 (MSE fall below the
+     prior's); (e) 5-round fits of a 2^16-row cut (logistic, squared,
+     `min_records=10`) whose rounds and `predict_raw` equal the CPU's;
+  9. serving: phase 3's forest saved to build/repro_torch/serve/ (deleted
+     at the end) and loaded by `ForestServer.load` on the card, warmed at
+     batch 1 and 1024: (a) answers for 1, 1024 and 2^16 held-out rows
+     equal the CPU `PackedForest`'s; (b) every malformed-request class
+     raises `InvalidRequest` and the next valid request answers as
+     before; (c) the first call after load, single-row p50/p99 over 300
+     calls, rows/s at batch 1024 and 2^16; (d) fit 8 (a)'s `predict_raw`:
+     single-row p50/p99 and 2^20 rows, equal to the CPU's.
+Every fit of phases 3, 5, 6 and 8 prints the sha256 of its packed trees
+(`--forests --src DIR` prints those of phases 3, 5 and 6 for another
+tree's port, on the same rows).  Prints the whole run's seconds, a JSON
+line with every kernel's numbers (at GBT's shapes too), the nvidia-smi
+line, and last `{"ok": true, "device": {...}}`.  Exits non-zero without
+a GPU.
 """
 from __future__ import annotations
 
@@ -94,6 +118,9 @@ SEED_DEPTH = 8                   # phase 6 (e): the seed builder's depth
 STREAM_CHUNKS = (1 << 20, 1 << 16)  # phase 7 (b): the two chunk sizes
 STREAM_KILL_AFTER = 3            # phase 7 (d): level snapshots before SIGKILL
 PEAK_SPREAD = 64 * 2**20         # phase 7 (c): most the two peaks may differ
+GBT_SMALL_ROWS = 1 << 16         # phase 8 (e): rows of the card-vs-CPU cut
+GBT_SMALL_ROUNDS = 5             # phase 8 (e): its rounds
+SERVE_CALLS = 300                # phase 9 (c): single-row calls timed
 
 
 def log(msg: str) -> None:
@@ -290,6 +317,9 @@ def library_index_add(x, leaf, w, y, L1, V, S, task):
 
 
 def check_cat_hist(args, dev, g, n, T, m, L1, V, task, timed, inputs=None):
+    """cat_hist against its plain version, bit for bit (regression: both
+    sum in the same 64-bit fixed point), and a regression table again
+    (repeatable run to run)."""
     import torch
     from repro_torch.kernels import cat_hist as ch
     S = 2 if task == "classification" else 3
@@ -299,18 +329,13 @@ def check_cat_hist(args, dev, g, n, T, m, L1, V, task, timed, inputs=None):
     tp = ch.cat_hist_plain(x, leaf, w, y, **kw)
     torch.cuda.synchronize()
     err = (tk - tp).abs().max().item()
-    if task == "classification":
-        if not torch.equal(tk, tp):
-            fail(f"cat_hist V={V} L1={L1}: not bit-equal (max err {err})")
-    else:
-        again = ch.cat_hist(x, leaf, w, y, **kw)
-        if not torch.equal(tk, again):
-            fail(f"cat_hist regression V={V} L1={L1}: not deterministic")
-        mag = ch.cat_hist_plain(x, leaf, w, y.abs(), **kw)   # Σ|stat| per cell
-        if not bool(((tk - tp).abs() <= 1e-4 * mag + 1e-6).all()):
-            fail(f"cat_hist regression V={V} L1={L1}: max err {err}")
+    if not torch.equal(tk, tp):
+        fail(f"cat_hist {task} V={V} L1={L1}: not bit-equal (max err {err})")
+    if task == "regression" and not torch.equal(
+            tk, ch.cat_hist(x, leaf, w, y, **kw)):
+        fail(f"cat_hist regression V={V} L1={L1}: not deterministic")
     row = dict(n=n, T=T, m=m, L1=L1, V=V, task=task, max_abs_err=err,
-               bit_equal=task == "classification")
+               bit_equal=True)
     del tk, tp
     if timed:
         row["ms"] = cuda_ms(lambda: ch.cat_hist(x, leaf, w, y, **kw))
@@ -375,6 +400,7 @@ def library_feat_index_add(x, slot, w, y, W, B, S, task):
 
 def check_feat_hist(args, dev, g, n, T, m, W, B, bin_dtype, task, timed,
                     inputs=None):
+    """feat_hist against its plain version, as `check_cat_hist`."""
     import torch
     from repro_torch.kernels import feat_hist as fh
     S = 2 if task == "classification" else 3
@@ -388,18 +414,13 @@ def check_feat_hist(args, dev, g, n, T, m, W, B, bin_dtype, task, timed,
     name = f"feat_hist {str(x.dtype)[6:]} B={B} W={W} {task}"
     if float(tk[:, :, 0].abs().sum()) != 0.0:
         fail(f"{name}: slot 0 is not discarded")
-    if task == "classification":
-        if not torch.equal(tk, tp):
-            fail(f"{name}: not bit-equal (max err {err})")
-    else:
-        again = fh.feat_hist(x, slot, w, y, **kw)
-        if not torch.equal(tk, again):
-            fail(f"{name}: not deterministic")
-        mag = fh.feat_hist_plain(x, slot, w, y.abs(), **kw)  # Σ|stat| per cell
-        if not bool(((tk - tp).abs() <= 1e-4 * mag + 1e-6).all()):
-            fail(f"{name}: max err {err}")
+    if not torch.equal(tk, tp):
+        fail(f"{name}: not bit-equal (max err {err})")
+    if task == "regression" and not torch.equal(
+            tk, fh.feat_hist(x, slot, w, y, **kw)):
+        fail(f"{name}: not deterministic")
     row = dict(n=n, T=T, m=m, W=W, B=B, bins=str(x.dtype)[6:], task=task,
-               max_abs_err=err, bit_equal=task == "classification")
+               max_abs_err=err, bit_equal=True)
     if task == "regression":
         row["sha256"] = hashlib.sha256(tk.cpu().numpy().tobytes()).hexdigest()
     del tk, tp
@@ -885,6 +906,19 @@ def phase2_main_shapes(args, dev, ds):
 # Phases 3-4: training and prediction through the port's entry points
 # ---------------------------------------------------------------------------
 
+def tree_digest(trees) -> str:
+    """sha256 of a forest's packed tree arrays (`pack_trees` on the CPU):
+    two fits with equal digests grew bit-equal trees."""
+    import numpy as np
+    from repro_torch.core.forest import pack_trees
+    pk = pack_trees(trees, device="cpu")
+    h = hashlib.sha256(f"{pk.m_num} {pk.iters}".encode())
+    for name, a in pk.to_arrays().items():
+        h.update(name.encode())
+        h.update(np.ascontiguousarray(a).tobytes())
+    return h.hexdigest()
+
+
 def same_trees(a, b) -> bool:
     import numpy as np
     keys = ("feature", "threshold", "is_cat", "cat_mask", "children",
@@ -919,7 +953,8 @@ def run_fit(args, ds, params, kernels, label, idle=None, num_trees=TREES):
     counters of `kernels` and `idle` (name -> module) set to 0 just before
     and read just after: every kernel of `kernels` must have launched, no
     kernel of `idle`.  Peak device memory must stay under 60 GiB, and a
-    repeat fit (profiled with --profile) must grow identical trees."""
+    repeat fit must grow identical trees; with --profile a third fit runs
+    under the profiler, its idle share taken against the repeat's wall."""
     import torch
     from repro_torch.core.forest import RandomForest
     idle = idle or {}
@@ -953,7 +988,9 @@ def run_fit(args, ds, params, kernels, label, idle=None, num_trees=TREES):
     log(f"  launches: {json.dumps(launches)}"
         + (f"; not on this path: {json.dumps(idle_launches)}" if idle
            else ""))
-    log(f"  nodes per tree: {[t.num_nodes for t in rf.trees]}")
+    digest = tree_digest(rf.trees)
+    log(f"  nodes per tree: {[t.num_nodes for t in rf.trees]}; trees sha256 "
+        f"{digest}")
     if launches and min(launches.values()) <= 0:
         fail(f"{label}: a kernel of the path never launched: {launches}")
     if any(idle_launches.values()):
@@ -962,18 +999,18 @@ def run_fit(args, ds, params, kernels, label, idle=None, num_trees=TREES):
         fail(f"{label}: peak device memory {peak / 2**30:.1f} GiB passes "
              f"60 GiB")
     t0 = time.perf_counter()
-    if args.profile:
-        again = profiled(fit, fit_s)
-    else:
-        again = fit()
+    again = fit()
     torch.cuda.synchronize()
     repeat_s = time.perf_counter() - t0
     log(f"  repeat {label} fit: {repeat_s:.3f} s")
     if not same_trees(rf.trees, again.trees):
         fail(f"a repeat {label} fit grew different trees")
     log(f"  repeat {label} fit grew identical trees")
+    if args.profile:                # a third fit, against the repeat's wall
+        del again
+        profiled(fit, repeat_s)
     return rf, dict(fit_s=fit_s, repeat_s=repeat_s, levels=levels,
-                    peak_bytes=peak, launches=launches)
+                    peak_bytes=peak, launches=launches, sha256=digest)
 
 
 def phase3(args, dev, ds):
@@ -1024,7 +1061,7 @@ def phase5(args, dev, leo_train, leo_test, maj_train, maj_test):
         f"{info_e['fit_s']:.3f} s, peak device memory "
         f"{info_e['peak_bytes'] / 2**30:.3f} GiB, held-out AUC "
         f"{rf_e.auc(maj_test):.6f}, split_scan launches "
-        f"{split_scan.launches}")
+        f"{split_scan.launches}; trees sha256 {tree_digest(rf_e.trees)}")
     return info_a, info_b, info_e
 
 
@@ -1158,7 +1195,7 @@ def phase6(args, dev, leo_train, maj_train, leo_exact_trees, maj_exact):
     out["e"] = dict(seed_s=seed_s, forest_s=forest_s, nodes=spec.num_nodes)
     log(f"  (e) seed builder: depth <= {SEED_DEPTH} on {small.n} Leo rows, "
         f"{spec.num_nodes} nodes in {seed_s:.3f} s, equal to build_forest's "
-        f"tree ({forest_s:.3f} s)")
+        f"tree ({forest_s:.3f} s); trees sha256 {tree_digest(trees)}")
     out["phase_s"] = time.perf_counter() - t_phase
     log(f"  phase 6 total {out['phase_s']:.1f} s")
     return out
@@ -1418,6 +1455,477 @@ raise SystemExit("the fit was not killed")
     return out
 
 
+# ---------------------------------------------------------------------------
+# Phase 8: boosted trees (GBTModel) on the card
+# ---------------------------------------------------------------------------
+
+def gbt_recorders(captured):
+    """Recorders around the port's kernel adapters that keep, for each
+    kernel, the inputs of its latest call as its wrapper receives them
+    (after a fit: the deepest level of the last round).  Returns
+    (install, restore)."""
+    import torch
+    from repro_torch.kernels import ops as kops
+    orig = (kops.split_scan_supersplit, kops.categorical_tables,
+            kops.feature_tables)
+
+    def own(t):                 # a contiguous copy the fit cannot change
+        return t.clone(memory_format=torch.contiguous_format)
+
+    def record_ss(sorted_vals, sorted_idx, leaf_of, w, labels, cand, totals,
+                  impurity="gini", task="classification", min_records=1.0):
+        captured["split_scan"] = dict(
+            ins=(sorted_vals.contiguous(), sorted_idx.contiguous(),
+                 own(leaf_of), w.contiguous(),
+                 labels.to(torch.float32).contiguous(), own(cand),
+                 own(totals)),
+            kw=dict(impurity=impurity, task=task, min_records=min_records))
+        return orig[0](sorted_vals, sorted_idx, leaf_of, w, labels, cand,
+                       totals, impurity, task, min_records)
+
+    def record_cat(cat_cols, leaf_of, w, labels, *, V, Lp, task,
+                   num_classes):
+        captured["cat_hist"] = dict(
+            ins=(cat_cols.contiguous(), own(leaf_of), w.contiguous(),
+                 labels.to(torch.float32).contiguous()),
+            L1=Lp + 1, V=V, task=task)
+        return orig[1](cat_cols, leaf_of, w, labels, V=V, Lp=Lp, task=task,
+                       num_classes=num_classes)
+
+    def record_feat(bin_of, slots, w, labels, *, B, W, task, num_classes):
+        captured["feat_hist"] = dict(
+            ins=(bin_of.contiguous(), own(slots.to(torch.int32)),
+                 w.contiguous(), labels.to(torch.float32).contiguous()),
+            W=W, B=B, task=task)
+        return orig[2](bin_of, slots, w, labels, B=B, W=W, task=task,
+                       num_classes=num_classes)
+
+    def install():
+        (kops.split_scan_supersplit, kops.categorical_tables,
+         kops.feature_tables) = record_ss, record_cat, record_feat
+
+    def restore():
+        (kops.split_scan_supersplit, kops.categorical_tables,
+         kops.feature_tables) = orig
+    return install, restore
+
+
+def variance_gains64(ins, kw, t, j, h):
+    """Every split of leaf h of tree t on column j, as Alg. 1 scores it
+    (a row whose value passes the previous in-bag value of its leaf,
+    `min_records` on both sides), with the kernel's float32 row stats and
+    totals summed in float64: (thresholds in float32, float64 gains)."""
+    import torch
+    from repro_torch.core import splits
+    vals, sidx, leaf, w, y, cand, totals = ins
+    si = sidx[j].long()
+    a, lf, ww = vals[j], leaf[t, si], w[t, si]
+    act = (lf == h) & (ww > 0) & bool(cand[t, j, h])
+    a, ww, yy = a[act], ww[act], y[si][act]
+    st = splits.row_stats(yy, ww, 3, "regression").double()    # float32 rows
+    left = st.cumsum(0) - st
+    right = totals[t, h].double() - left
+    pv = torch.cat([a.new_full((1,), float("-inf")), a[:-1]])
+    ok = torch.isfinite(pv) & (a > pv) \
+        & (left[:, 0] >= kw["min_records"]) \
+        & (right[:, 0] >= kw["min_records"])
+    gain = splits.split_gain(left, right, "variance")
+    return ((a + pv) * 0.5)[ok], gain[ok]
+
+
+def check_captured_split_scan(args, cap):
+    """split_scan on a captured regression level against its plain
+    version: finite masks equal and gains within phase 2's bound (1e-6 of
+    the leaves' stat sums).  Where the two pick other thresholds (gains
+    tied to float32 rounding, summed in other orders), each pick's gain,
+    summed in float64 (`variance_gains64`), must be within the same bound
+    of the best split's.  Timed beside its bound."""
+    import torch
+    from repro_torch.kernels import split_scan as ss
+    ins, kw = cap["ins"], cap["kw"]
+    if kw["impurity"] != "variance":
+        fail(f"split_scan capture: a {kw['impurity']} level, not variance")
+    gk, tk = ss.split_scan(*ins, **kw)
+    gp, tp = ss.split_scan_plain(*ins, **kw)
+    torch.cuda.synchronize()
+    fin = torch.isfinite(gp)
+    if not torch.equal(torch.isfinite(gk), fin):
+        fail("split_scan on a captured GBT level: finite masks differ")
+    err = (gk[fin] - gp[fin]).abs().max().item() if fin.any() else 0.0
+    thr_same = (tk[fin] == tp[fin]).float().mean().item() if fin.any() \
+        else 1.0
+    scale = ins[6].abs().max().item()
+    tol = 1e-6 * max(scale, 1.0)
+    if err > tol:
+        fail(f"split_scan on a captured GBT level: max gain err {err} "
+             f"(scale {scale})")
+    worst = 0.0
+    for t, j, h in (fin & (tk != tp)).nonzero().tolist():
+        taus, g64 = variance_gains64(ins, kw, t, j, h)
+        best = g64.max().item()
+        for pick in (tk[t, j, h], tp[t, j, h]):
+            at = g64[taus == pick]
+            if not at.numel():
+                fail(f"split_scan (tree {t}, column {j}, leaf {h}): "
+                     f"threshold {pick.item()} is no split of the leaf")
+            worst = max(worst, best - at.max().item())
+    if worst > tol:
+        fail(f"split_scan on a captured GBT level: a picked threshold's "
+             f"float64 gain is {worst} below the best split's (bound {tol})")
+    bit_equal = torch.equal(gk, gp) and torch.equal(tk, tp)
+    del gk, tk, gp, tp
+    T, n = ins[2].shape
+    m, L1 = ins[0].shape[0], ins[6].shape[1]
+    act = (((ins[2] > 0) & (ins[3] > 0))[:, None, :]
+           & torch.gather(ins[5], 2, ins[2].long()[:, None, :].expand(
+               T, m, n))).sum().item()
+    b, by = bound_ms(ss.bound_bytes(T, m, n, L1, 3), act * 40)
+    row = dict(n=n, T=T, m=m, L1=L1, impurity=kw["impurity"],
+               max_abs_err=err, same_thr=thr_same, bit_equal=bit_equal,
+               tied_pick_gap=worst,
+               ms=cuda_ms(lambda: ss.split_scan(*ins, **kw)),
+               plain_ms=cuda_ms(lambda: ss.split_scan_plain(*ins, **kw),
+                                runs=1),
+               bound_ms=b, bound_by=by, library_ms=None)
+    torch.cuda.empty_cache()
+    return row
+
+
+def check_gbt_kernels(args, captured, kernels, label):
+    """Each kernel the fit launched, held against its plain version on the
+    inputs captured from the fit's deepest level of its last round (to
+    phase 2's standard for regression stats) and timed there."""
+    rows = {}
+    for name in kernels:
+        cap = captured.get(name)
+        if cap is None:
+            fail(f"{label}: no {name} call was captured")
+        if name == "split_scan":
+            r = check_captured_split_scan(args, cap)
+        elif name == "cat_hist":
+            x, leaf, w, y = cap["ins"]
+            r = check_cat_hist(args, None, None, x.shape[1], leaf.shape[0],
+                               x.shape[0], cap["L1"], cap["V"], cap["task"],
+                               True, inputs=cap["ins"])
+        else:
+            x, slot, w, y = cap["ins"]
+            r = check_feat_hist(args, None, None, x.shape[1], slot.shape[0],
+                                x.shape[0], cap["W"], cap["B"], x.dtype,
+                                cap["task"], True, inputs=cap["ins"])
+        rows[name] = {k: r[k] for k in ("n", "T", "m", "L1", "V", "W",
+                                        "max_abs_err", "bit_equal", "ms",
+                                        "plain_ms", "bound_ms", "bound_by",
+                                        "library_ms") if k in r}
+        log(f"  {label}: {name} on the deepest level of the last round "
+            f"{json.dumps(rows[name])}")
+    return rows
+
+
+def gbt_fit(args, ds, params, kernels, idle, label):
+    """Fit `params` on `ds` through `GBTModel.fit` with the launch counters
+    and the level-step counter set to 0 just before and read just after:
+    every kernel of `kernels` must launch once per level step, no kernel
+    of `idle` at all.  A repeat fit (recorders around the kernel adapters)
+    must grow identical trees; each kernel is then held against its plain
+    version on the repeat's captured deepest level (`check_gbt_kernels`).
+    With --profile a third fit runs under the profiler."""
+    import torch
+    from repro_torch.core import tree as tree_lib
+    from repro_torch.core.gbt import GBTModel
+
+    def fit():
+        return GBTModel(params).fit(ds)
+
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    for mod in (*kernels.values(), *idle.values()):
+        mod.launches = 0
+    tree_lib._BATCH_STEP_CALLS[0] = 0
+    t0 = time.perf_counter()
+    gbt = fit()
+    torch.cuda.synchronize()
+    fit_s = time.perf_counter() - t0
+    steps = tree_lib._BATCH_STEP_CALLS[0]
+    launches = {name: mod.launches for name, mod in kernels.items()}
+    idle_launches = {name: mod.launches for name, mod in idle.items()}
+    peak = torch.cuda.max_memory_allocated()
+    digest = tree_digest(gbt.trees)
+    log(f"  {label} fit: {fit_s:.3f} s for {params.num_rounds} rounds "
+        f"({fit_s / params.num_rounds * 1e3:.3f} ms a round) of depth <= "
+        f"{params.max_depth} on n={ds.n} rows x {ds.m} columns; {steps} "
+        f"level steps; peak device memory {peak / 2**30:.3f} GiB")
+    log(f"  launches: {json.dumps(launches)}; not on this path: "
+        f"{json.dumps(idle_launches)}")
+    log(f"  nodes per round: {[t.num_nodes for t in gbt.trees]}; trees "
+        f"sha256 {digest}")
+    if any(v != steps for v in launches.values()) or not steps:
+        fail(f"{label}: a kernel of the path did not launch once per level "
+             f"step ({steps}): {launches}")
+    if any(idle_launches.values()):
+        fail(f"{label}: launched a kernel off its path: {idle_launches}")
+    if peak > 60 * 2**30:
+        fail(f"{label}: peak device memory {peak / 2**30:.1f} GiB passes "
+             f"60 GiB")
+    captured = {}
+    install, restore = gbt_recorders(captured)
+    install()
+    try:
+        t0 = time.perf_counter()
+        again = fit()
+        torch.cuda.synchronize()
+        repeat_s = time.perf_counter() - t0
+    finally:
+        restore()
+    log(f"  repeat {label} fit (kernel inputs recorded): {repeat_s:.3f} s")
+    if not same_trees(gbt.trees, again.trees):
+        fail(f"a repeat {label} fit grew different trees")
+    del again
+    log(f"  repeat {label} fit grew identical trees")
+    if args.profile:                # a third fit, against the repeat's wall
+        profiled(fit, repeat_s)
+    rows = check_gbt_kernels(args, captured, kernels, label)
+    del captured
+    torch.cuda.empty_cache()
+    return gbt, dict(fit_s=fit_s, repeat_s=repeat_s, steps=steps,
+                     peak_bytes=peak, launches=launches, sha256=digest,
+                     kernels=rows)
+
+
+def phase8(args, dev, train, test):
+    """Boosted trees on the card; see the module docstring.  Returns
+    (fit (a)'s model, what PERF.md records)."""
+    import numpy as np
+    import torch
+    from repro_torch.core.dataset import from_numpy
+    from repro_torch.core.forest import binary_auc
+    from repro_torch.core.gbt import GBTModel, GBTParams
+    from repro_torch.kernels import cat_hist, feat_hist, split_scan
+    t_phase = time.perf_counter()
+    out = {"fits": {}}
+    reg_train = from_numpy(train.num, train.cat, regression_target(train),
+                           train.arities, task="regression")
+    y_test = regression_target(test)
+    fits = (
+        ("(a) logistic", train, GBTParams(loss="logistic"),
+         {"cat_hist": cat_hist}),
+        ("(b) logistic kernel", train,
+         GBTParams(loss="logistic", backend="kernel"),
+         {"split_scan": split_scan, "cat_hist": cat_hist}),
+        ("(c) logistic hist", train,
+         GBTParams(loss="logistic", split_mode="hist"),
+         {"feat_hist": feat_hist, "cat_hist": cat_hist}),
+        ("(d) squared", reg_train, GBTParams(loss="squared"),
+         {"cat_hist": cat_hist}))
+    every = {"split_scan": split_scan, "cat_hist": cat_hist,
+             "feat_hist": feat_hist}
+    model_a = None
+    for label, ds, params, kern in fits:
+        idle = {k: v for k, v in every.items() if k not in kern}
+        gbt, info = gbt_fit(args, ds, params, kern, idle, f"GBT {label}")
+        f = gbt.predict_raw(test.num, test.cat).cpu().numpy()
+        if not np.isfinite(f).all() or f.shape != (test.n,):
+            fail(f"GBT {label}: predict_raw gave {f.shape} / non-finite")
+        if params.loss == "logistic":
+            info["auc"] = binary_auc(f, np.asarray(test.labels))
+            log(f"  GBT {label}: held-out AUC {info['auc']:.6f}")
+            if not info["auc"] > 0.6:
+                fail(f"GBT {label}: AUC {info['auc']} is no better than "
+                     f"chance")
+        else:
+            info["mse"] = float(((f - y_test) ** 2).mean())
+            info["prior_mse"] = float(((gbt.base_score - y_test) ** 2).mean())
+            log(f"  GBT {label}: held-out MSE {info['mse']:.6f} against the "
+                f"prior's {info['prior_mse']:.6f}")
+            if not info["mse"] < info["prior_mse"]:
+                fail(f"GBT {label}: held-out MSE is not below the prior's")
+        out["fits"][label] = info
+        if model_a is None:
+            model_a = gbt
+        else:
+            del gbt
+        torch.cuda.empty_cache()
+
+    # (e) a 2^16-row cut: the card's rounds equal the CPU port's
+    k = GBT_SMALL_ROWS
+    for loss, y, task in (("logistic", train.labels[:k], "classification"),
+                          ("squared", regression_target(train)[:k],
+                           "regression")):
+        small = from_numpy(train.num[:k], train.cat[:k], y, train.arities,
+                           task=task)
+        p = GBTParams(loss=loss, num_rounds=GBT_SMALL_ROUNDS,
+                      min_records=10)
+        t0 = time.perf_counter()
+        gpu = GBTModel(p).fit(small)
+        torch.cuda.synchronize()
+        gpu_s = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        cpu = GBTModel(p, device="cpu").fit(small)
+        cpu_s = time.perf_counter() - t0
+        if not same_trees(gpu.trees, cpu.trees):
+            fail(f"(e) {loss}: the card's rounds differ from the CPU's")
+        q_num, q_cat = test.num[:k], test.cat[:k]
+        if not torch.equal(gpu.predict_raw(q_num, q_cat).cpu(),
+                           cpu.predict_raw(q_num, q_cat)):
+            fail(f"(e) {loss}: the card's predict_raw differs from the "
+                 f"CPU's")
+        out[f"e {loss}"] = dict(gpu_s=gpu_s, cpu_s=cpu_s)
+        log(f"  (e) {loss}, {GBT_SMALL_ROUNDS} rounds on {k} rows: the "
+            f"card's trees equal the CPU's node for node and predict_raw "
+            f"bit for bit ({gpu_s:.3f} s on the card, {cpu_s:.3f} s on the "
+            f"CPU)")
+    out["phase_s"] = time.perf_counter() - t_phase
+    log(f"  phase 8 total {out['phase_s']:.1f} s")
+    log(f"  phase 8 {json.dumps(out)}")
+    return model_a, out
+
+
+# ---------------------------------------------------------------------------
+# Phase 9: serving (ForestServer) on the card
+# ---------------------------------------------------------------------------
+
+def latency_ms(fn, calls: int) -> list:
+    """Host milliseconds of each of `calls` calls of `fn` (each ends in a
+    host copy of its answer, so a call waits for the card), sorted."""
+    out = []
+    for _ in range(calls):
+        t0 = time.perf_counter()
+        fn()
+        out.append((time.perf_counter() - t0) * 1e3)
+    return sorted(out)
+
+
+def percentile(sorted_ms: list, q: float) -> float:
+    return sorted_ms[min(len(sorted_ms) - 1, int(q * len(sorted_ms)))]
+
+
+def phase9(args, dev, exact_trees, test, gbt_a):
+    """Serving on the card; see the module docstring.  Returns what
+    PERF.md records."""
+    import dataclasses as dc
+    import numpy as np
+    import torch
+    from repro_torch.core.forest import PackedForest, pack_trees
+    from repro_torch.serve.engine import ForestServer, InvalidRequest
+    t_phase = time.perf_counter()
+    out = {}
+    work = ROOT / "build" / "repro_torch" / "serve"
+    work.mkdir(parents=True, exist_ok=True)
+    path = work / "forest.npz"
+    try:
+        pack_trees(exact_trees, device="cpu").save(path)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        srv = ForestServer.load(path, m_cat=test.m_cat, arities=test.arities,
+                                warm_batch_sizes=(1, 1024))
+        out["load_s"] = time.perf_counter() - t0
+        cpu = PackedForest.load(path, device="cpu")
+        num, cat = test.num, test.cat
+        t0 = time.perf_counter()
+        first = srv.predict(num[:1], cat[:1]).cpu()
+        out["first_call_ms"] = (time.perf_counter() - t0) * 1e3
+
+        # (a) the card's answers equal the CPU's, bit for bit
+        for b in (1, 1024, 1 << 16):
+            got = srv.predict(num[:b], cat[:b]).cpu()
+            if not torch.equal(got, cpu.predict_proba(num[:b], cat[:b])):
+                fail(f"(a) the server's answers for {b} rows differ from "
+                     f"the CPU PackedForest's")
+        log(f"  (a) ForestServer on the card ({srv.packed.num_trees} trees, "
+            f"loaded and warmed at batch 1 and 1024 in {out['load_s']:.3f} "
+            f"s): answers for 1, 1024 and 65536 held-out rows equal the CPU "
+            f"PackedForest's bit for bit")
+
+        # (b) every malformed-request class raises; the server keeps serving
+        good_num, good_cat = num[:2], cat[:2]
+        want = srv.predict(good_num, good_cat).cpu()
+        bad_nan = good_num.copy()
+        bad_nan[1, 2] = np.nan
+        bad_neg = good_cat.copy()
+        bad_neg[0, 3] = -1
+        bad_hi = good_cat.copy()
+        bad_hi[1, 78] = test.arities[78]
+        cases = {
+            "numeric shape": (good_num[:, :2], good_cat),
+            "non-finite": (bad_nan, good_cat),
+            "missing categorical row": (good_num, None),
+            "integer dtype": (good_num, good_cat.astype(np.float32)),
+            "categorical shape": (good_num, good_cat[:, :5]),
+            "batch mismatch": (good_num, cat[:3]),
+            "negative id": (good_num, bad_neg),
+            "id >= arity": (good_num, bad_hi)}
+        for name, (n_in, c_in) in cases.items():
+            try:
+                srv.predict(n_in, c_in)
+            except InvalidRequest as e:
+                msg = str(e)
+            else:
+                fail(f"(b) a request with a bad {name} was answered")
+            if not torch.equal(srv.predict(good_num, good_cat).cpu(), want):
+                fail(f"(b) after a bad {name}, a valid request answered "
+                     f"otherwise")
+            log(f"  (b) {name}: InvalidRequest ({msg[:70]}); the next valid "
+                f"request answered as before")
+
+        # (c) latency and throughput
+        one_num, one_cat = num[5:6], cat[5:6]
+        lat = latency_ms(lambda: srv.predict(one_num, one_cat).cpu(),
+                         SERVE_CALLS)
+        out.update(p50_ms=percentile(lat, 0.5), p99_ms=percentile(lat, 0.99),
+                   max_ms=lat[-1])
+        for b in (1024, 1 << 16):
+            srv.predict(num[:b], cat[:b]).cpu()
+            ms = latency_ms(lambda: srv.predict(num[:b], cat[:b]).cpu(), 10)
+            out[f"rows_per_s_{b}"] = b / (percentile(ms, 0.5) / 1e3)
+            out[f"batch_{b}_p50_ms"] = percentile(ms, 0.5)
+        log(f"  (c) first call after load {out['first_call_ms']:.3f} ms; "
+            f"single row over {SERVE_CALLS} calls: p50 "
+            f"{out['p50_ms']:.3f} ms, p99 {out['p99_ms']:.3f} ms, max "
+            f"{out['max_ms']:.3f} ms; batch 1024: "
+            f"{out['rows_per_s_1024']:.0f} rows/s; batch 65536: "
+            f"{out['rows_per_s_65536']:.0f} rows/s")
+        del first, srv, cpu
+
+        # (d) GBT (a)'s predict_raw on the card, against the CPU's
+        gbt_cpu = dc.replace(gbt_a, device="cpu", packed=None)
+        rows = 1 << 20
+        q_num, q_cat = num[:rows], cat[:rows]
+        gbt_a.predict_raw(q_num[:1], q_cat[:1]).cpu()
+        lat = latency_ms(lambda: gbt_a.predict_raw(one_num, one_cat).cpu(),
+                         SERVE_CALLS)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        f = gbt_a.predict_raw(q_num, q_cat).cpu()
+        out["gbt_rows_s"] = time.perf_counter() - t0
+        out["gbt_p50_ms"] = percentile(lat, 0.5)
+        out["gbt_p99_ms"] = percentile(lat, 0.99)
+        if not torch.equal(f, gbt_cpu.predict_raw(q_num, q_cat)):
+            fail("(d) GBT (a)'s predict_raw on the card differs from the "
+                 "CPU's")
+        log(f"  (d) GBT (a) predict_raw ({len(gbt_a.trees)} rounds): single "
+            f"row p50 {out['gbt_p50_ms']:.3f} ms, p99 "
+            f"{out['gbt_p99_ms']:.3f} ms; {rows} rows in "
+            f"{out['gbt_rows_s'] * 1e3:.3f} ms, equal to the CPU's bit for "
+            f"bit")
+    finally:
+        shutil.rmtree(work, ignore_errors=True)
+    out["phase_s"] = time.perf_counter() - t_phase
+    log(f"  phase 9 total {out['phase_s']:.1f} s")
+    log(f"  phase 9 {json.dumps(out)}")
+    return out
+
+
+def busy_within(merged, lo, hi) -> float:
+    """Device-busy microseconds inside [lo, hi], from sorted disjoint
+    busy intervals."""
+    import bisect
+    i = max(0, bisect.bisect_right(merged, [lo, float("inf")]) - 1)
+    out = 0.0
+    while i < len(merged) and merged[i][0] < hi:
+        out += max(0.0, min(hi, merged[i][1]) - max(lo, merged[i][0]))
+        i += 1
+    return out
+
+
 def profiled(fn, unprofiled_s: float):
     """Run `fn` under torch.profiler and print where the device time went:
     the device-side span of every `level.*` / `fit.*` range, call by call
@@ -1440,16 +1948,30 @@ def profiled(fn, unprofiled_s: float):
     dev = [e for e in prof.events() if e.device_type != DeviceType.CPU]
     ann = [e for e in dev if getattr(e, "is_user_annotation", False)]
     work = [e for e in dev if not getattr(e, "is_user_annotation", False)]
-    busy_us, end = 0.0, float("-inf")
+    merged = []                           # device busy intervals, us
     for e in sorted(work, key=lambda e: e.time_range.start):
         lo, hi = e.time_range.start, e.time_range.end
-        if hi > end:
-            busy_us += hi - max(lo, end)
-            end = hi
-    busy_ms = busy_us / 1e3
+        if merged and lo <= merged[-1][1]:
+            merged[-1][1] = max(merged[-1][1], hi)
+        else:
+            merged.append([lo, hi])
+    busy_ms = sum(hi - lo for lo, hi in merged) / 1e3
     log(f"  profile: window {wall_ms:.3f} ms, device busy {busy_ms:.3f} ms; "
         f"idle share {1 - busy_ms / wall_ms:.4f} of the profiled window, "
         f"{1 - busy_ms / (unprofiled_s * 1e3):.4f} of the unprofiled fit")
+    # the pipelined loop: how much of the host's deferred book ran while
+    # the device was busy, and how long the host then waited
+    for name in ("level.book", "level.host_fetch"):
+        host = [e for e in prof.events() if e.device_type == DeviceType.CPU
+                and e.name == name]
+        if not host:
+            continue
+        host_us = sum(e.time_range.end - e.time_range.start for e in host)
+        under = sum(busy_within(merged, e.time_range.start,
+                                e.time_range.end) for e in host)
+        log(f"    host range {name}: {len(host)} calls, "
+            f"{host_us / 1e3:.3f} ms on the host, the device busy for "
+            f"{under / max(host_us, 1e-9):.4f} of it")
     spans = collections.defaultdict(list)
     for e in sorted(ann, key=lambda e: e.time_range.start):
         spans[e.name].append((e.time_range.end - e.time_range.start) / 1e3)
@@ -1592,8 +2114,16 @@ def main() -> int:
     ap.add_argument("--stream", action="store_true",
                     help="build, then only fit (b) in memory and phase 7 "
                          "(development)")
+    ap.add_argument("--forests", action="store_true",
+                    help="build, then only the forest fits of phases 3, 5 "
+                         "and 6, each with its trees' sha256 (with --src: "
+                         "another tree's port on the same rows)")
+    ap.add_argument("--gbt", action="store_true",
+                    help="build, then only phase 3's fit and phases 8-9 "
+                         "(development)")
     ap.add_argument("--profile", action="store_true",
-                    help="profile the repeat fit: device time per part")
+                    help="profile a third fit of each cell: device time "
+                         "per part, idle share, the host's book")
     args = ap.parse_args()
 
     src = (args.src or ROOT / "src").resolve()
@@ -1635,7 +2165,8 @@ def main() -> int:
     n_all = (1 << args.train_log2n) + TEST_ROWS
     cut = 1 << args.train_log2n
     from repro_torch.core.dataset import from_numpy
-    if not (args.exact_levels or args.hist_levels or args.stream):
+    if not (args.exact_levels or args.hist_levels or args.stream
+            or args.forests or args.gbt):
         phase2(args, dev)
         deep_fit(args, dev)
     if args.hist_levels:
@@ -1672,6 +2203,17 @@ def main() -> int:
     train = from_numpy(num[:cut], cat[:cut], y[:cut], arities)
     test = from_numpy(num[cut:], cat[cut:], y[cut:], arities)
     del num, cat, y
+    if args.gbt:
+        log("phase 3: train on the card")
+        rf, _ = phase3(args, dev, train)
+        exact_trees = rf.trees
+        del rf
+        log("phase 8: boosted trees on the card")
+        gbt_a, _ = phase8(args, dev, train, test)
+        log("phase 9: serving on the card")
+        phase9(args, dev, exact_trees, test, gbt_a)
+        log(f"  total {time.perf_counter() - t_start:.1f} s")
+        return 0
     maj = majority_dataset(args.seed, n_all)
     maj_train = from_numpy(maj.num[:cut], None, maj.labels[:cut])
     maj_test = from_numpy(maj.num[cut:], None, maj.labels[cut:])
@@ -1681,6 +2223,17 @@ def main() -> int:
         f"majority data: {maj_train.n} + {maj_test.n} rows, "
         f"{maj_train.m_num} numeric columns; made in "
         f"{time.perf_counter() - t0:.2f} s")
+    if args.forests:
+        log("phase 3: train on the card")
+        rf, _ = phase3(args, dev, train)
+        exact_trees = rf.trees
+        del rf
+        log("phase 5: hist mode on the card")
+        _, _, maj_exact = phase5(args, dev, train, test, maj_train, maj_test)
+        log("phase 6: the reference's default path")
+        phase6(args, dev, train, maj_train, exact_trees, maj_exact)
+        log(f"  total {time.perf_counter() - t_start:.1f} s")
+        return 0
     main_rows = phase2_main_shapes(args, dev, train)
     exact_levels = exact_main_levels(args, dev, train)
     main_rows["feat_hist"] = feat_hist_main_shapes(args, dev, maj_train)
@@ -1705,6 +2258,13 @@ def main() -> int:
 
     log("phase 7: streamed training")
     phase7(args, dev, src, maj_train, hist_b.pop("trees"))
+    del maj_train, maj_test
+
+    log("phase 8: boosted trees on the card")
+    gbt_a, gbt_info = phase8(args, dev, train, test)
+
+    log("phase 9: serving on the card")
+    phase9(args, dev, exact_trees, test, gbt_a)
 
     kernels = []
     sources = {"split_scan": ("src/repro_torch/csrc/split_scan.cu",
@@ -1724,7 +2284,11 @@ def main() -> int:
             launches=run["launches"][name],
             max_abs_err=r["max_abs_err"], ms=r["ms"], plain_ms=r["plain_ms"],
             bound_ms=r["bound_ms"], bound_by=r["bound_by"],
-            library_ms=r["library_ms"], levels_ms=levels_ms[name]))
+            library_ms=r["library_ms"], levels_ms=levels_ms[name],
+            gbt={label: dict(launches=info["launches"][name],
+                             **info["kernels"][name])
+                 for label, info in gbt_info["fits"].items()
+                 if name in info["kernels"]}))
     log(f"  total {time.perf_counter() - t_start:.1f} s")
     print(json.dumps({"kernels": kernels}), flush=True)
     print(smi, flush=True)

@@ -393,6 +393,19 @@ def best_numeric_split_leaf_ordered(
 # Numerical — PLANET-style histogram (approximate) mode
 # ---------------------------------------------------------------------------
 
+def _prefix_cuts(table, task):
+    """(left, right) stats of the cuts after each position but the last
+    along axis -2 of `table` (..., K, S), in that axis's order.  The
+    totals are the last prefix.  Regression's float stats accumulate in
+    float64 in that order (as the CPU's float32 `cumsum` already does;
+    CUDA's accumulates in float32), so every device rounds them alike;
+    class counts are exact in any order."""
+    prefix = (table.double().cumsum(-2).to(table.dtype)
+              if task == "regression" else table.cumsum(-2))
+    left = prefix[..., :-1, :]
+    return left, prefix[..., -1:, :] - left
+
+
 def best_numeric_split_histogram(table, cand_leaf, impurity="gini",
                                  task="classification", min_records=1.0):
     """Approximate supersplit: score only the B−1 bucket boundaries.
@@ -408,10 +421,7 @@ def best_numeric_split_histogram(table, cand_leaf, impurity="gini",
     zero-gain duplicate cuts and never win over a populated boundary.
     """
     cnt = count_fn(task)
-    totals = table.sum(-2)                                  # (..., L+1, S)
-    prefix = table.cumsum(-2)                               # cut after bin b
-    left = prefix[..., :-1, :]                              # cuts 0..B-2
-    right = totals[..., None, :] - left
+    left, right = _prefix_cuts(table, task)                 # cut after bin b
     ok = (cnt(left) >= min_records) & (cnt(right) >= min_records) \
         & cand_leaf[..., None]
     gains = torch.where(ok, split_gain(left, right, impurity), NEG)
@@ -428,9 +438,10 @@ def feature_count_tables(bin_of, slots, w, stats, num_slots, num_bins):
     bin_of (m, n) packed bucket ids; slots/w (T, n); stats (T, n, S) ->
     (T, m, num_slots+1, B, S).  `slots` are scatter slots, 0 = discard:
     raw leaf ids on the plain path, packed build slots under histogram
-    subtraction (derive-leaf rows mapped to 0).  The plain version of the
-    `feat_hist` kernel, and the reference's jnp twin of its Pallas kernel
-    with the tree axis written out.
+    subtraction (derive-leaf rows mapped to 0).  Sums in the stats'
+    dtype.  The plain version of the `feat_hist` kernel, and the
+    reference's jnp twin of its Pallas kernel with the tree axis written
+    out.
     """
     T, n = slots.shape
     m = bin_of.shape[0]
@@ -438,11 +449,12 @@ def feature_count_tables(bin_of, slots, w, stats, num_slots, num_bins):
     W = num_slots + 1
     dev = bin_of.device
     inbag = (w > 0) & (slots > 0)
-    contrib = torch.where(inbag[..., None], stats, 0.0)        # (T, n, S)
+    contrib = torch.where(inbag[..., None], stats,
+                          stats.new_zeros(()))                  # (T, n, S)
     base = (torch.arange(T * m, device=dev).reshape(T, m, 1) * W
             + slots.long()[:, None, :]) * num_bins            # (T, m, n)
     flat = (base + presort.bin_ids(bin_of).long()[None]).reshape(-1)
-    table = torch.zeros((T * m * W * num_bins, S), dtype=torch.float32,
+    table = torch.zeros((T * m * W * num_bins, S), dtype=stats.dtype,
                         device=dev)
     table.index_add_(0, flat,
                      contrib[:, None].expand(T, m, n, S).reshape(-1, S))
@@ -458,20 +470,22 @@ def categorical_count_tables(x, leaf_of, w, stats, num_leaves, arity):
 
     x (m, n) category values; leaf_of/w (T, n); stats (T, n, S) ->
     (T, m, L+1, V, S): the paper's 'attribute value × class -> count'
-    table per open leaf, one flat scatter per column.
+    table per open leaf, one flat scatter per column, summed in the
+    stats' dtype.
     """
     T, n = leaf_of.shape
     m = x.shape[0]
     S = stats.shape[-1]
     L1 = num_leaves + 1
     inbag = (w > 0) & (leaf_of > 0)
-    contrib = torch.where(inbag[..., None], stats, 0.0).reshape(T * n, S)
+    contrib = torch.where(inbag[..., None], stats,
+                          stats.new_zeros(())).reshape(T * n, S)
     tree_base = (torch.arange(T, device=x.device) * (L1 * arity))[:, None]
-    out = torch.zeros((T, m, L1 * arity, S), dtype=torch.float32,
+    out = torch.zeros((T, m, L1 * arity, S), dtype=stats.dtype,
                       device=x.device)
     for j in range(m):
         flat = tree_base + leaf_of.long() * arity + x[j].long()[None]
-        tab = torch.zeros((T * L1 * arity, S), dtype=torch.float32,
+        tab = torch.zeros((T * L1 * arity, S), dtype=stats.dtype,
                           device=x.device)
         tab.index_add_(0, flat.reshape(-1), contrib)
         out[:, j] = tab.reshape(T, L1 * arity, S)
@@ -503,7 +517,6 @@ def best_categorical_split_from_table(table, cand_leaf, impurity="gini",
         return (torch.full(shape, NEG, device=table.device),
                 torch.zeros(shape + (arity,), dtype=torch.bool,
                             device=table.device))
-    totals = table.sum(-2)                                  # (..., L+1, S)
     tc = cnt(table)                                         # (..., L+1, V)
     col = -1 if task == "classification" else 1
     metric = table[..., col] / tc.clamp(min=1e-12)
@@ -511,9 +524,7 @@ def best_categorical_split_from_table(table, cand_leaf, impurity="gini",
     order = torch.argsort(metric, dim=-1, stable=True)
     sorted_table = torch.gather(
         table, -2, order[..., None].expand(table.shape))
-    prefix = sorted_table.cumsum(-2)                        # cut after pos v
-    left = prefix[..., :-1, :]
-    right = totals[..., None, :] - left
+    left, right = _prefix_cuts(sorted_table, task)         # cut after pos v
     ok = (cnt(left) >= min_records) & (cnt(right) >= min_records) \
         & cand_leaf[..., None]
     gains = torch.where(ok, split_gain(left, right, impurity), NEG)

@@ -9,7 +9,8 @@ search and condition evaluation are the data plane
 the dataset is scanned once per candidate feature per LEVEL.
 
   * `build_forest` — a whole batch of trees per level step (explicit tree
-    axis), one small per-leaf struct fetched per level;
+    axis), one small per-leaf struct fetched per level, the host's book of
+    level d−1 overlapping the device's level d;
   * `build_tree` — a one-tree `build_forest` (the reference asserts the
     two are bit-identical, so the port defines one by the other);
   * `build_forest_streamed` — a batch of hist-mode trees from a
@@ -114,7 +115,14 @@ class Tree:
 
 @dataclasses.dataclass
 class LevelStats:
-    """Per-level complexity counters (paper Table 1)."""
+    """Per-level complexity counters (paper Table 1).
+
+    `wall_seconds` is host time.  In `build_forest` it runs from the
+    level's dispatch to its struct being on the host, so it includes the
+    previous level's deferred book, which runs while the device works on
+    this level; in `build_forest_streamed`, the level's chunk passes,
+    score step and struct fetch.
+    """
     depth: int
     open_leaves: int
     network_bits_bitmap: int     # the 1-bit-per-sample broadcast
@@ -122,7 +130,7 @@ class LevelStats:
     class_list_bits: int         # n * ceil(log2(l+1))
     feature_passes: int          # sequential passes over candidate columns
     rows_scanned: int
-    wall_seconds: float          # the batched level step, host fetch included
+    wall_seconds: float          # see the class docstring
     # hist mode: bytes of the level's table payload, m_num·width·B·S f32;
     # under subtraction only the packed build slots (width Lp//2+1 instead
     # of Lp+1) are built
@@ -269,6 +277,31 @@ def _forest_keys(seed: int, tidx: list, dev) -> torch.Tensor:
                         torch.as_tensor(tidx, dtype=torch.int64, device=dev))
 
 
+def _fetch_to_host(tensors: dict):
+    """Start copying `tensors` to the host; returns a function that waits
+    for the copies and gives them as numpy arrays.
+
+    On CUDA each tensor goes into a pinned buffer through a non-blocking
+    copy on the current stream, followed by an event, and the waiting
+    function synchronizes on that event alone.  On the CPU the tensors are
+    on the host already (and pinned memory needs CUDA): the waiting
+    function hands them over, in the same order of operations.
+    """
+    if next(iter(tensors.values())).device.type != "cuda":
+        return lambda: {k: v.numpy() for k, v in tensors.items()}
+    host = {k: torch.empty(v.shape, dtype=v.dtype, pin_memory=True)
+            for k, v in tensors.items()}
+    for k, v in tensors.items():
+        host[k].copy_(v, non_blocking=True)
+    copied = torch.cuda.Event()
+    copied.record()
+
+    def wait():
+        copied.synchronize()
+        return {k: v.numpy() for k, v in host.items()}
+    return wait
+
+
 def _check_params(params) -> None:
     if params.split_mode not in ("exact", "hist"):
         raise ValueError(f"unknown split_mode {params.split_mode!r} "
@@ -319,6 +352,10 @@ def _hist_state(num, sorted_vals, params, m_num, bin_of, bin_edges, dev):
     return bin_of.to(dev).contiguous(), edges.to(dev, torch.float32)
 
 
+# level steps `build_forest` has dispatched (the reference's counter)
+_BATCH_STEP_CALLS = [0]
+
+
 def build_forest(
     *,
     num: torch.Tensor, cat: torch.Tensor, labels: torch.Tensor,
@@ -359,6 +396,16 @@ def build_forest(
     the batch reach that fraction, they are dropped from every
     row-indexed array before the next level (Sprint pruning, paper §3);
     the trees do not change.
+
+    The host loop is pipelined, as the reference's: once level d is
+    dispatched, its struct and next totals start for the host (pinned
+    buffers and an event on CUDA, `_fetch_to_host`), level d−1's deferred
+    book (node values, `_grow_level`, `LevelStats`; the `level.book`
+    range) runs while the device works, and only then does the host wait
+    (the `level.host_fetch` range).  Each tree's bookkeeping runs in the
+    unpipelined order, so the trees are the same.  A regression level
+    step reads its fixed-point scales on the host, so the book overlaps
+    only what that step queues after its last read.
 
     Returns (trees, stats_logs), parallel lists over `tree_indices`.
     """
@@ -412,12 +459,51 @@ def build_forest(
     leaf_of = torch.ones((T, n), dtype=torch.int32, device=dev)
     stats_logs: list[list[LevelStats]] = [[] for _ in range(T)]
 
+    def write_values(Ls_d, counts_d, totals_d):
+        """Node values of one level's open nodes from its leaf totals."""
+        for t in range(T):
+            for h in range(1, Ls_d[t] + 1):
+                accs[t].set_value(open_nodes[t][h - 1], totals_d[t, h],
+                                  counts_d[t, h], task)
+
+    def book(depth_d, Ls_d, counts_d, totals_d, host_d, part_d, n_d, wall_d):
+        """Level d's host bookkeeping, deferred until level d+1 has been
+        dispatched: its node values, then `_grow_level` per tree (each
+        tree's order is the unpipelined loop's, so its nodes are too)."""
+        write_values(Ls_d, counts_d, totals_d)
+        for t in range(T):
+            if not part_d[t]:
+                continue
+            L = Ls_d[t]
+            host_t = {k: host_d[k][t] for k in
+                      ("best_feat", "best_gain", "thr", "mask", "will_split")}
+            next_open, any_split = _grow_level(
+                accs[t], open_nodes[t], host_t, L, m_num, depth_d,
+                edges_np=edges_np)
+            if collect_stats:
+                Lp_t = _pad_leaves(L, params.leaf_pad)
+                passes = int(min(m_prime * (1 if params.usb else L), m))
+                tbl_w = (Lp_t // 2 + 1) if carries and depth_d > 0 \
+                    else Lp_t + 1
+                stats_logs[t].append(LevelStats(
+                    depth=depth_d, open_leaves=L,
+                    network_bits_bitmap=int(counts_d[t, 1:L + 1].sum()),
+                    network_bits_supersplit=int(m * (Lp_t + 1) * 64),
+                    class_list_bits=class_list.storage_bits(n_d, L),
+                    feature_passes=passes, rows_scanned=n_d * passes,
+                    wall_seconds=wall_d,
+                    hist_table_bytes=(m_num * tbl_w * params.num_bins
+                                      * S_dim * 4 if hist else 0)))
+            if any_split:
+                open_nodes[t] = next_open
+
     totals_np = None                      # (T, width, S), host
     row_counts_np = None                  # (T, width), host (ord layout)
     closed_np = 0                         # rows closed in EVERY tree
     Ls = [1] * T                          # current frontier size per tree
     tables = None                         # carried hist tables (device)
     maps_src = None                       # (ws, key_counts, Ls) of level-1
+    pending = None                        # the previous level's book args
     for depth in range(params.max_depth + 1):
         if max(Ls) == 0:
             break
@@ -439,11 +525,9 @@ def build_forest(
             cur_rc[:, :k] = row_counts_np[:, :k]
             row_counts_np = cur_rc
         counts = cnt_np(totals_np)                   # (T, Lp+1)
-        for t in range(T):                           # node values
-            for h in range(1, Ls[t] + 1):
-                accs[t].set_value(open_nodes[t][h - 1], totals_np[t, h],
-                                  counts[t, h], task)
 
+        # the splittable mask needs this level's totals only; the node
+        # values wait for the deferred book
         at_max_depth = depth >= params.max_depth
         splittable_p = np.zeros((T, Lp + 1), bool)
         participate = [False] * T
@@ -456,6 +540,13 @@ def build_forest(
                     splittable_p[t, 1:Ls[t] + 1] = sp
                     participate[t] = True
         if not splittable_p.any():
+            # nothing to dispatch: drain the pipeline, then write the last
+            # frontier's node values
+            if pending is not None:
+                with record_function("level.book"):
+                    book(*pending)
+                pending = None
+            write_values(Ls, counts, totals_np)
             break
 
         # Sprint pruning (paper §3): drop the rows closed in EVERY tree once
@@ -502,51 +593,40 @@ def build_forest(
                           stats=stats,
                           totals=torch.as_tensor(totals_np, device=dev),
                           bin_of=bin_of, **maps)
+        _BATCH_STEP_CALLS[0] += 1
         struct, leaf_of, next_totals, tables, ord_idx = \
             _fused_level_step_batched(
                 inp, torch.as_tensor(splittable_p, device=dev), fkeys, depth,
                 plan=plan, Lp=Lp, subtract=subtract,
                 need_partition=depth + 1 < params.max_depth)
+        # the pipeline: start the struct's copy to the host, run the
+        # PREVIOUS level's book while the device runs this level, and only
+        # then wait for the copy
+        wait = _fetch_to_host(dict(struct, next_totals=next_totals))
+        if pending is not None:
+            with record_function("level.book"):
+                book(*pending)
         with record_function("level.host_fetch"):
-            host = {k: v.cpu().numpy() for k, v in struct.items()}
-            totals_np = next_totals.cpu().numpy()
+            host = wait()
         wall = time.perf_counter() - t_level
+        totals_cur, totals_np = totals_np, host.pop("next_totals")
         closed_np = int(host["closed_rows"])
         if use_ord or carries:
             row_counts_np = host["key_counts"]
         if carries:
             maps_src = (host["will_split"], host["key_counts"], list(Ls))
 
+        # the next frontier needs the split bitmap alone
         ws = host["will_split"]
-        Ls_next = [0] * T
-        for t in range(T):
-            if not participate[t]:
-                continue
-            L = Ls[t]
-            host_t = {k: host[k][t] for k in
-                      ("best_feat", "best_gain", "thr", "mask", "will_split")}
-            next_open, any_split = _grow_level(
-                accs[t], open_nodes[t], host_t, L, m_num, depth,
-                edges_np=edges_np)
-            if collect_stats:
-                Lp_t = _pad_leaves(L, params.leaf_pad)
-                passes = int(min(m_prime * (1 if params.usb else L), m))
-                tbl_w = (Lp_t // 2 + 1) if carries and depth > 0 \
-                    else Lp_t + 1
-                stats_logs[t].append(LevelStats(
-                    depth=depth, open_leaves=L,
-                    network_bits_bitmap=int(counts[t, 1:L + 1].sum()),
-                    network_bits_supersplit=int(m * (Lp_t + 1) * 64),
-                    class_list_bits=class_list.storage_bits(n, L),
-                    feature_passes=passes, rows_scanned=n * passes,
-                    wall_seconds=wall,
-                    hist_table_bytes=(m_num * tbl_w * params.num_bins
-                                      * S_dim * 4 if hist else 0)))
-            if any_split:
-                open_nodes[t] = next_open
-            Ls_next[t] = 2 * int(ws[t, 1:L + 1].sum())
+        Ls_next = [2 * int(ws[t, 1:Ls[t] + 1].sum()) if participate[t] else 0
+                   for t in range(T)]
+        pending = (depth, list(Ls), counts, totals_cur, host, participate, n,
+                   wall)
         Ls = Ls_next
 
+    if pending is not None:         # the loop left through max(Ls) == 0
+        with record_function("level.book"):
+            book(*pending)
     return ([_assemble_tree(a, max_arity, m_num, task) for a in accs],
             stats_logs)
 

@@ -24,10 +24,10 @@ CPU tensors; so do `leaf_buckets` and its plain version.
 Exactness: classification tables are integer counts below 2^24, so the
 kernel's float atomics give the plain version's table bit for bit.
 Regression tables are summed in 64-bit fixed point (deterministic run to
-run, see the source) and agree with the plain float32 `index_add_` to
-float32 rounding of the plain sums: |kernel - plain| <= 1e-4 · Σ|stat| per
-cell (a float32 sum of k terms is off by up to about k·2^-24 of Σ|stat|,
-and a cell of these tables sums up to ~10^4 rows).
+run, see the source), and so is the plain version (`fixed_point_tables`):
+the two give the same bits, on the card and on the CPU.  (A float32
+`index_add_` of a cell of millions of rows, as GBT's shallow levels have,
+is off from the exact sum by far more than one float32 rounding.)
 """
 from __future__ import annotations
 
@@ -49,9 +49,26 @@ launches = 0                # kernel launches (tree groups of <= 8 trees)
 
 def cat_hist_plain(x, leaf, w, y, *, L1, V, num_stats,
                    task="classification"):
-    """The plain torch version: stats per row, one flat scatter-add."""
+    """The plain torch version: stats per row, one flat scatter-add.
+    Regression sums in the kernel's 64-bit fixed point
+    (`fixed_point_tables`), so both give the same bits."""
     stats = splits.row_stats(y, w, num_stats, task)            # (T, n, S)
-    return splits.categorical_count_tables(x, leaf, w, stats, L1 - 1, V)
+    if task != "regression":
+        return splits.categorical_count_tables(x, leaf, w, stats, L1 - 1, V)
+    return fixed_point_tables(
+        lambda q: splits.categorical_count_tables(x, leaf, w, q, L1 - 1, V),
+        stats, fixed_point_scales(leaf, w, y, L1))
+
+
+def fixed_point_tables(scatter, stats, scales):
+    """`scatter` (a plain table's scatter-add) over the row stats in the
+    kernels' 64-bit fixed point: each float32 stat times its channel's
+    power-of-two scale, rounded to the nearest integer (ties to even), the
+    int64 sums exact in any order, then times 1/scale and rounded once to
+    float32."""
+    s = torch.tensor(scales, dtype=torch.float64, device=stats.device)
+    acc = scatter(torch.round(stats.double() * s).long())
+    return (acc.double() * (1.0 / s)).to(torch.float32)
 
 
 def _lib():

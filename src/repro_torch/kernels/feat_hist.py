@@ -27,9 +27,8 @@ tensors.
 Exactness, as for `cat_hist`: classification tables are integer counts
 below 2^24, so the kernel's integer counts and float atomics give the
 plain version's table bit for bit; regression tables are summed in 64-bit
-fixed point (deterministic run to run, the same bits on both paths) and
-agree with the plain float32 `index_add_` to |kernel - plain| <= 1e-4 ·
-Σ|stat| per cell.
+fixed point by both (`cat_hist.fixed_point_tables`), so they give the same
+bits on both paths.
 """
 from __future__ import annotations
 
@@ -42,7 +41,8 @@ import torch
 from repro_torch.core import splits
 from repro_torch.kernels import _build
 from repro_torch.kernels.cat_hist import (TASK, count_wmax,
-                                          fixed_point_scales)
+                                          fixed_point_scales,
+                                          fixed_point_tables)
 
 launches = 0                # kernel launches (tree groups of <= 8 trees)
 
@@ -57,9 +57,15 @@ MANY_COLUMNS = 8            # columns from which the shared path's pass
 
 def feat_hist_plain(x, slot, w, y, *, W, B, num_stats,
                     task="classification"):
-    """The plain torch version: stats per row, one flat scatter-add."""
+    """The plain torch version: stats per row, one flat scatter-add.
+    Regression sums in the kernel's 64-bit fixed point
+    (`cat_hist.fixed_point_tables`), so both give the same bits."""
     stats = splits.row_stats(y, w, num_stats, task)            # (T, n, S)
-    return splits.feature_count_tables(x, slot, w, stats, W - 1, B)
+    if task != "regression":
+        return splits.feature_count_tables(x, slot, w, stats, W - 1, B)
+    return fixed_point_tables(
+        lambda q: splits.feature_count_tables(x, slot, w, q, W - 1, B),
+        stats, fixed_point_scales(slot, w, y, W))
 
 
 def _lib():

@@ -38,13 +38,16 @@ def reference() -> types.SimpleNamespace:
     _apply_shim()
     import jax
     import jax.numpy as jnp
-    from repro.core import bagging, dataset, forest, presort, splits, tree
+    from repro.core import (bagging, dataset, forest, gbt, presort, splits,
+                            tree)
     from repro.data import synthetic
     from repro.kernels import cat_hist, ops, ref, split_scan
+    from repro.serve import engine as serve_engine
     return types.SimpleNamespace(
         jax=jax, jnp=jnp, bagging=bagging, dataset=dataset, forest=forest,
-        presort=presort, splits=splits, tree=tree, synthetic=synthetic,
-        cat_hist=cat_hist, ops=ops, ref=ref, split_scan=split_scan)
+        gbt=gbt, presort=presort, splits=splits, tree=tree,
+        synthetic=synthetic, cat_hist=cat_hist, ops=ops, ref=ref,
+        split_scan=split_scan, serve_engine=serve_engine)
 
 
 def _run(code: str, env_extra=None) -> subprocess.CompletedProcess:

@@ -78,7 +78,11 @@ def _table_case(B, task, T=2, n=900, m=3, W=6, seed=1):
 def test_feature_tables_match_reference(B, task):
     """`feature_count_tables` and `feat_hist_plain` (tree axis written
     out) against the reference's per-tree twin; slot-0 rows must not
-    leak into any cell."""
+    leak into any cell.  Classification: the plain version is the float32
+    scatter bit for bit.  Regression: it sums in the kernel's 64-bit
+    fixed point, so it must be the exact (float64) sums to that fixed
+    point's bound (one float32 rounding, plus n rows' quantization of at
+    most 0.5/scale each)."""
     ref = reference()
     jnp = ref.jnp
     S = 3
@@ -90,7 +94,17 @@ def test_feature_tables_match_reference(B, task):
     plain = feat_hist.feat_hist(t(x), t(slot), t(w), t(y), W=W, B=B,
                                 num_stats=S, task=task)
     assert tab.shape == (2, 3, W, B, S)
-    np.testing.assert_array_equal(plain.numpy(), tab.numpy())
+    if task == "classification":
+        np.testing.assert_array_equal(plain.numpy(), tab.numpy())
+    else:
+        exact = splits.feature_count_tables(t(x), t(slot), t(w),
+                                            stats.double(), W - 1, B)
+        quant = torch.tensor([len(y) * 0.5 / s for s in
+                              feat_hist.fixed_point_scales(t(slot), t(w),
+                                                           t(y), W)],
+                             dtype=torch.float64)
+        assert bool(((plain.double() - exact).abs()
+                     <= 2.0 ** -24 * exact.abs() + quant).all())
     assert float(tab[:, :, 0].abs().sum()) == 0.0
     for k in range(2):
         labels = y.astype(np.int32) if task == "classification" else y

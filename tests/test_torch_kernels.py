@@ -217,6 +217,26 @@ def test_cat_hist_plain_regression_matches_ref():
     np.testing.assert_allclose(got, np.asarray(want), rtol=1e-5, atol=1e-5)
 
 
+@pytest.mark.parametrize("V", [2, 300])
+def test_cat_hist_plain_regression_is_the_fixed_point_sum(V):
+    """Regression tables sum in the kernel's 64-bit fixed point: within
+    one float32 rounding (plus n rows' quantization of at most 0.5/scale
+    each) of the exact float64 sums, even where a cell holds a hundred
+    thousand rows and a float32 scatter drifts."""
+    from repro_torch.core import splits
+    n, m, L = 200_000, 2, 3
+    x, leaf, w, y = (torch.as_tensor(a) for a in _cat_case(
+        V, n, m, L, task="regression", T=2, seed=V))
+    got = cat_hist.cat_hist_plain(x, leaf, w, y, L1=L + 1, V=V, num_stats=3,
+                                  task="regression")
+    stats = splits.row_stats(y, w, 3, "regression")
+    exact = splits.categorical_count_tables(x, leaf, w, stats.double(), L, V)
+    quant = torch.tensor([n * 0.5 / s for s in cat_hist.fixed_point_scales(
+        leaf, w, y, L + 1)], dtype=torch.float64)
+    assert bool(((got.double() - exact).abs()
+                 <= 2.0 ** -24 * exact.abs() + quant).all())
+
+
 def test_categorical_tables_tree_axis_and_ops():
     x, leaf, w, y = _cat_case(7, n=300, m=4, L=5, C=2, T=3, seed=2)
     t = torch.as_tensor
@@ -526,13 +546,11 @@ def test_cat_hist_cuda_matches_plain(cuda, task):
     kw = dict(L1=7, V=37, num_stats=S, task=task)
     plain = cat_hist.cat_hist(*args, **kw)
     got = cat_hist.cat_hist(*[a.to(cuda) for a in args], **kw)
-    if task == "classification":
-        np.testing.assert_array_equal(got.cpu().numpy(), plain.numpy())
-    else:
+    # regression: both sum in the same 64-bit fixed point
+    np.testing.assert_array_equal(got.cpu().numpy(), plain.numpy())
+    if task == "regression":
         again = cat_hist.cat_hist(*[a.to(cuda) for a in args], **kw)
         assert torch.equal(got, again)
-        np.testing.assert_allclose(got.cpu().numpy(), plain.numpy(),
-                                   rtol=1e-4, atol=1e-4)
 
 
 @pytest.mark.gpu
@@ -638,9 +656,9 @@ def test_feat_hist_cuda_matches_plain(cuda, B, task, T, n, m, W, root, frac,
     block) and past a block's shared memory or with wide tables and few
     columns (device path), fractional
     weights (float tables), more trees than one launch takes (T = 10, two
-    tree groups).  Classification equals the plain tables bit for bit;
-    regression repeats bit for bit and is within 1e-4 of Σ|stat| per
-    cell."""
+    tree groups).  Both tasks equal the plain tables bit for bit
+    (regression: the same 64-bit fixed point), and regression repeats bit
+    for bit."""
     S = 2 if task == "classification" else 3
     assert feat_hist.hist_plan(min(T, 8), m, n, W, B, S,
                                task).shared == shared
@@ -652,14 +670,10 @@ def test_feat_hist_cuda_matches_plain(cuda, B, task, T, n, m, W, root, frac,
     before = feat_hist.launches
     got = feat_hist.feat_hist(*dev, **kw)
     assert feat_hist.launches - before == -(-T // 8)
-    if task == "classification":
-        assert torch.equal(got, plain)
-    else:
+    assert torch.equal(got, plain)
+    if task == "regression":
         again = feat_hist.feat_hist(*dev, **kw)
         assert torch.equal(got, again)
-        mag = feat_hist.feat_hist_plain(dev[0], dev[1], dev[2],
-                                        dev[3].abs(), **kw)
-        assert bool(((got - plain).abs() <= 1e-4 * mag + 1e-6).all())
 
 
 @pytest.mark.gpu
