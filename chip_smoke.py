@@ -85,6 +85,35 @@ Phases, each fatal on failure:
      before; (c) the first call after load, single-row p50/p99 over 300
      calls, rows/s at batch 1024 and 2^16; (d) fit 8 (a)'s `predict_raw`:
      single-row p50/p99 and 2^20 rows, equal to the CPU's.
+  10. sharded training across ranks: DIST_WORLD = 4 worker processes
+     (this script with --dist-worker), all on this card over gloo, meet
+     through a FileStore under build/repro_torch/dist/ (deleted after),
+     make the rows from --seed as this process does and fit through the
+     port's entry points with the mesh engines of
+     `repro_torch.core.distributed`, each fit with the counters set to 0
+     just before and read just after: (a) phase 6 (a)'s Leo fit on a
+     (data=2, model=1) mesh of ranks 0 and 1 (`ShardedExactNumeric`
+     segment + `ShardedCategorical`; cat_hist once a level on every rank,
+     no split_scan); (b) phase 5 (b)'s hist fit on (2, 2)
+     (`ShardedHistNumeric`; feat_hist once a level; each level's
+     all-reduce bytes must equal `LevelStats.hist_table_bytes` / 2); (c)
+     the majority rows exact on (2, 2) (the resumable 2-D scan); (d)
+     `fit_streamed` of (b)'s rows from an `ArrayRowSource` at chunk 2^20
+     on (2, 2) (feat_hist once a table chunk); (e) a regression hist fit
+     of the majority rows (`regression_target`) on (2, 2) against this
+     process's local fit, bit for bit; (f) `make_sharded_evaluate` at
+     2^23 rows on (1, 4) against local evaluation.  Every rank's trees
+     must equal the local fit's ((a) == phase 6 (a), (b) and (d) ==
+     phase 5 (b), (c) == phase 5's exact majority fit).  In (a), (b),
+     (d) and (e) each rank keeps the inputs of one call of the table
+     wrapper as its engine made it (its shard's rows and columns; in
+     (e) the global scales with `fixed=True`) and holds cat_hist or
+     feat_hist there against its plain version, bit for bit.  Each rank
+     prints its digests, walls, launches, peak device memory and each
+     collective's bytes and seconds per level; the ranks share the card
+     in time, so no wall here is a speed-up.  Then
+     `multihost_smoke.main(2)` runs at its default device, the card.
+     `--dist` runs phase 1, the local fits and phase 10 alone.
 Every fit of phases 3, 5, 6 and 8 prints the sha256 of its packed trees
 (`--forests --src DIR` prints those of phases 3, 5 and 6 for another
 tree's port, on the same rows).  Prints the whole run's seconds, a JSON
@@ -121,6 +150,10 @@ PEAK_SPREAD = 64 * 2**20         # phase 7 (c): most the two peaks may differ
 GBT_SMALL_ROWS = 1 << 16         # phase 8 (e): rows of the card-vs-CPU cut
 GBT_SMALL_ROUNDS = 5             # phase 8 (e): its rounds
 SERVE_CALLS = 300                # phase 9 (c): single-row calls timed
+DIST_WORLD = 4                   # phase 10: ranks, all on this card (gloo)
+DIST_TIMEOUT = 900               # phase 10: seconds the ranks may take
+SHARD_CHECK_CALL = 3             # phase 10: the wrapper call held to plain
+EVAL_LEAVES = 511                # phase 10 (f): open leaves of the level
 
 
 def log(msg: str) -> None:
@@ -1914,6 +1947,453 @@ def phase9(args, dev, exact_trees, test, gbt_a):
     return out
 
 
+# ---------------------------------------------------------------------------
+# Phase 10: sharded training across ranks (torch.distributed over gloo)
+# ---------------------------------------------------------------------------
+
+def regression_hist_params(args):
+    from repro_torch.core import tree as tree_lib
+    return tree_lib.TreeParams(max_depth=args.depth, backend="kernel",
+                               split_mode="hist", num_bins=HIST_BINS,
+                               task="regression", impurity="variance")
+
+
+def collective_levels(entries) -> list:
+    """A mesh log per level: {"op@axis": [calls, bytes, seconds]}."""
+    out = {}
+    for e in entries:
+        cell = out.setdefault(e["level"], {}).setdefault(
+            f"{e['op']}@{e['axis']}", [0, 0, 0.0])
+        cell[0] += 1
+        cell[1] += e["bytes"]
+        cell[2] += e["seconds"]
+    return [out[k] for k in sorted(out)]
+
+
+def expected_hist_bytes(rf, F: int) -> list:
+    """Per level step, the bytes the hist engine's one all-reduce must
+    carry: the batch's T trees times the widest tree's
+    `LevelStats.hist_table_bytes` (the batch's padded frontier), over the
+    F column owners."""
+    out = []
+    for t0 in range(0, len(rf.trees), TREE_BATCH):
+        logs = rf.level_stats[t0:t0 + TREE_BATCH]
+        for d in sorted({s.depth for log in logs for s in log}):
+            widest = max(s.hist_table_bytes for log in logs for s in log
+                         if s.depth == d)
+            out.append(len(logs) * widest // F)
+    return out
+
+
+def dist_fit(mesh, fit, kernels) -> tuple:
+    """One sharded fit on this rank with the launch counters, level-step
+    counters, the mesh's collective log and the peak device memory set to
+    0 just before and read just after.  Returns (info, forest)."""
+    import torch
+    from repro_torch.core import tree as tree_lib
+    from repro_torch.core.level import plan as plan_lib
+    for mod in kernels.values():
+        mod.launches = 0
+    tree_lib._BATCH_STEP_CALLS[0] = 0
+    plan_lib._STREAM_CHUNK_CALLS[0] = 0
+    mesh.reset_log()
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    rf = fit()
+    torch.cuda.synchronize()
+    info = dict(wall_s=time.perf_counter() - t0,
+                sha256=tree_digest(rf.trees),
+                launches={k: m.launches for k, m in kernels.items()},
+                steps=tree_lib._BATCH_STEP_CALLS[0],
+                chunk_steps=plan_lib._STREAM_CHUNK_CALLS[0],
+                peak_bytes=torch.cuda.max_memory_allocated(),
+                levels=collective_levels(mesh.log))
+    return info, rf
+
+
+def shard_capture(kind: str, fit, own_cols: bool = False):
+    """`fit` wrapped so that it keeps the SHARD_CHECK_CALL-th call of the
+    `kops` adapter `kind` ("feature_tables" or "categorical_tables") as
+    this rank's engine makes it: its shard of rows and columns, and for a
+    regression forest the global scales with `fixed=True`.  The class-list
+    rows are copied; the column block is held as given (the dataset's own
+    tensor, which the fit leaves as it is, so the fit's peak stays its
+    own) unless `own_cols` (a streamed fit refills its chunk buffers).
+    Returns (wrapped fit, held list)."""
+    from repro_torch.kernels import ops as kops
+    adapter = getattr(kops, kind)
+    held, calls = [], [0]
+
+    def record(cols, rows, w, labels, **kw):
+        if calls[0] == SHARD_CHECK_CALL:
+            held.append(dict(cols=cols.clone() if own_cols else cols,
+                             rows=rows.clone(), w=w.clone(),
+                             labels=labels.clone(), kw=dict(kw)))
+        calls[0] += 1
+        return adapter(cols, rows, w, labels, **kw)
+
+    def run():
+        setattr(kops, kind, record)
+        try:
+            return fit()
+        finally:
+            setattr(kops, kind, adapter)
+    return run, held
+
+
+def check_shard_call(kind: str, held: list) -> dict:
+    """The kept call's kernel wrapper against its plain version on the same
+    card tensors, bit for bit (int64 sums when the call asked for
+    `fixed=True`).  Launches made here come after the fit's counts were
+    read."""
+    import torch
+    from repro_torch.kernels import cat_hist, feat_hist
+    from repro_torch.kernels import ops as kops
+    if len(held) != 1:
+        return dict(equal=False, error=f"no call {SHARD_CHECK_CALL} kept")
+    c = held.pop()
+    kw = c["kw"]
+    S = kops.stat_dim(kw["num_classes"], kw["task"])
+    extra = dict(task=kw["task"], scales=kw.get("scales"),
+                 fixed=kw.get("fixed", False))
+    rows = c["rows"].to(torch.int32).contiguous()
+    y = c["labels"].to(torch.float32).contiguous()
+    if kind == "feature_tables":
+        got = kops.feature_tables(c["cols"], rows, c["w"], y, B=kw["B"],
+                                  W=kw["W"], task=kw["task"],
+                                  num_classes=kw["num_classes"],
+                                  scales=extra["scales"],
+                                  fixed=extra["fixed"])
+        want = feat_hist.feat_hist_plain(
+            c["cols"].contiguous(), rows, c["w"].contiguous(), y, W=kw["W"],
+            B=kw["B"], num_stats=S, **extra)
+    else:
+        got = kops.categorical_tables(c["cols"], rows, c["w"], y,
+                                      V=kw["V"], Lp=kw["Lp"],
+                                      task=kw["task"],
+                                      num_classes=kw["num_classes"],
+                                      scales=extra["scales"],
+                                      fixed=extra["fixed"])
+        want = cat_hist.cat_hist_plain(
+            c["cols"].contiguous(), rows, c["w"].contiguous(), y,
+            L1=kw["Lp"] + 1, V=kw["V"], num_stats=S, **extra)
+    torch.cuda.synchronize()
+    out = dict(equal=bool(got.dtype == want.dtype and torch.equal(got, want)),
+               max_abs_err=float((got.double() - want.double()).abs().max()),
+               shape=list(got.shape), dtype=str(got.dtype).split(".")[-1],
+               rows=int(rows.shape[1]), cols=int(c["cols"].shape[0]),
+               scales=extra["scales"], fixed=extra["fixed"])
+    del c, got, want
+    torch.cuda.empty_cache()
+    return out
+
+
+def dist_worker(args) -> int:
+    """One rank of phase 10: join the gloo group, make the rows from
+    --seed as the parent does, run fits (b)-(f) on the (2, 2) and (1, 4)
+    meshes (every rank) and fit (a) on the (2, 1) mesh (ranks 0 and 1),
+    and print one `DIST-RESULT {json}` line."""
+    import numpy as np
+    import torch
+    import torch.distributed as dist
+    from repro_torch.core import distributed as D
+    from repro_torch.core import presort, tree as tree_lib
+    from repro_torch.core.dataset import ArrayRowSource, from_numpy
+    from repro_torch.core.forest import RandomForest
+    from repro_torch.kernels import cat_hist, feat_hist, split_scan
+    from repro_torch.launch.mesh import make_mesh
+    rank, world, store = (int(args.dist_worker[0]), int(args.dist_worker[1]),
+                          args.dist_worker[2])
+    dev = torch.device("cuda", 0)
+    torch.cuda.set_device(dev)
+    dist.init_process_group("gloo", store=dist.FileStore(store, world),
+                            rank=rank, world_size=world)
+    kernels = {"cat_hist": cat_hist, "feat_hist": feat_hist,
+               "split_scan": split_scan}
+    cut = 1 << args.train_log2n
+    n_all = cut + TEST_ROWS
+    out = {"rank": rank, "fits": {}}
+    fits = out["fits"]
+    try:
+        m22 = make_mesh(2, 2, backend="gloo", device=dev, timed=True)
+        m14 = make_mesh(1, 4, backend="gloo", device=dev, timed=True)
+        m21 = make_mesh(2, 1, backend="gloo", device=dev, ranks=[0, 1],
+                        timed=True)
+        out["staged"] = sorted(m22.staged)
+
+        def forest(params, ds, **kw):
+            return lambda: RandomForest(
+                params, num_trees=TREES, seed=args.seed,
+                tree_batch=TREE_BATCH).fit(ds, collect_stats=True, **kw)
+
+        maj = majority_dataset(args.seed, n_all)
+        maj_train = from_numpy(maj.num[:cut], None, maj.labels[:cut])
+        del maj
+        hist = hist_params(args)
+        # (b) hist with subtraction on (2, 2)
+        fit, held = shard_capture("feature_tables", forest(
+            hist, maj_train, engine=D.make_hist_sharded_supersplit(m22)))
+        fits["b"], rf = dist_fit(m22, fit, kernels)
+        fits["b"]["expected_bytes"] = expected_hist_bytes(rf, 2)
+        del rf
+        fits["b"]["shard_check"] = check_shard_call("feature_tables", held)
+        # (c) the 2-D resumable exact scan on (2, 2)
+        fits["c"], _ = dist_fit(m22, forest(
+            tree_lib.TreeParams(max_depth=args.depth), maj_train,
+            engine=D.make_2d_sharded_supersplit(m22)), kernels)
+        # (d) fit_streamed from an ArrayRowSource, the sharded hist engine
+        num = torch.as_tensor(maj_train.num, device=dev)
+        bins, edges = presort.quantize(
+            num, presort.gather_sorted(num, presort.presort_columns(num)),
+            HIST_BINS)
+        del num
+        src = ArrayRowSource(bins.cpu().numpy(), edges.cpu().numpy(),
+                             np.asarray(maj_train.labels), num_classes=2,
+                             chunk_size=STREAM_CHUNKS[0])
+        del bins, edges
+        fit, held = shard_capture("feature_tables", lambda: RandomForest(
+            hist, num_trees=TREES, seed=args.seed,
+            tree_batch=TREE_BATCH).fit_streamed(
+                src, engine=D.make_hist_sharded_supersplit(m22)),
+            own_cols=True)
+        fits["d"], rf = dist_fit(m22, fit, kernels)
+        fits["d"]["table_chunk_steps"] = stream_launch_counts(
+            rf, src.n, src.chunk_size, hist.max_depth)[0]
+        del rf, src
+        fits["d"]["shard_check"] = check_shard_call("feature_tables", held)
+        # (e) a regression hist forest on (2, 2): the fixed-point tables
+        reg = from_numpy(maj_train.num, None, regression_target(maj_train),
+                         task="regression")
+        fit, held = shard_capture("feature_tables", forest(
+            regression_hist_params(args), reg,
+            engine=D.make_hist_sharded_supersplit(m22)))
+        fits["e"], _ = dist_fit(m22, fit, kernels)
+        fits["e"]["shard_check"] = check_shard_call("feature_tables", held)
+        del reg
+        # (f) the 1-bit condition broadcast on (1, 4) against local
+        g = np.random.default_rng(args.seed + 10)
+        n = maj_train.n
+        cols = torch.as_tensor(maj_train.num, device=dev).t().contiguous()
+        leaf = torch.as_tensor(g.integers(0, EVAL_LEAVES + 1, n,
+                                          dtype=np.int32), device=dev)
+        feat = torch.as_tensor(g.integers(0, cols.shape[0], EVAL_LEAVES + 1,
+                                          dtype=np.int32), device=dev)
+        thr = torch.as_tensor(g.normal(size=EVAL_LEAVES + 1).astype(
+            np.float32), device=dev)
+        ev = D.make_sharded_evaluate(m14)
+        m14.reset_log()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        bits = ev(cols, leaf, feat, thr, cols.shape[0])
+        torch.cuda.synchronize()
+        t1 = time.perf_counter()
+        lf = leaf.long()
+        local = cols.reshape(-1)[feat.long()[lf] * n + torch.arange(
+            n, device=dev)] <= thr[lf]
+        torch.cuda.synchronize()
+        fits["f"] = dict(
+            wall_s=t1 - t0, local_s=time.perf_counter() - t1,
+            equal=bool(torch.equal(bits, local)),
+            sha256=hashlib.sha256(bits.cpu().numpy().tobytes()).hexdigest(),
+            levels=collective_levels(m14.log))
+        del cols, leaf, feat, thr, bits, local, maj_train
+        torch.cuda.empty_cache()
+        # (a) Leo's defaults on (2, 1): rows only (m_cat = 79 is prime)
+        if m21 is not None:
+            num, cat, y, arities = leo_dataset(args.seed, n_all)
+            leo = from_numpy(num[:cut], cat[:cut], y[:cut], arities)
+            del num, cat, y
+            fit, held = shard_capture("categorical_tables", forest(
+                tree_lib.TreeParams(max_depth=args.depth), leo,
+                engine=D.make_2d_sharded_supersplit(m21),
+                cat_engine=D.make_categorical_sharded_supersplit(m21)))
+            fits["a"], _ = dist_fit(m21, fit, kernels)
+            fits["a"]["shard_check"] = check_shard_call(
+                "categorical_tables", held)
+            del leo
+        dist.barrier()
+    finally:
+        dist.destroy_process_group()
+    print("DIST-RESULT " + json.dumps(out), flush=True)
+    return 0
+
+
+def dist_refs(args, leo_train, maj_train) -> dict:
+    """With --dist, the local card fits that phase 10 holds the sharded
+    fits against: phase 6 (a)'s, phase 5 (b)'s and phase 5's exact
+    majority fit (on the kernel backend; every exact backend grows the
+    same trees)."""
+    from repro_torch.core import tree as tree_lib
+    from repro_torch.kernels import cat_hist, feat_hist, split_scan
+    _, a = run_fit(args, leo_train, tree_lib.TreeParams(max_depth=args.depth),
+                   {"cat_hist": cat_hist}, "default (a) Leo",
+                   idle={"split_scan": split_scan})
+    _, b = run_fit(args, maj_train, hist_params(args),
+                   {"feat_hist": feat_hist}, "hist (b) majority")
+    _, c = run_fit(args, maj_train, tree_lib.TreeParams(
+        max_depth=args.depth, backend="kernel"), {"split_scan": split_scan},
+        "exact majority")
+    return {"a": a["sha256"], "b": b["sha256"], "c": c["sha256"]}
+
+
+def phase10(args, dev, maj_train, refs):
+    """Sharded training across DIST_WORLD ranks on this card; see the
+    module docstring.  `refs` holds the local fits' sha256: "a" (phase 6
+    (a)), "b" (phase 5 (b)), "c" (phase 5's exact majority fit); (e)'s
+    local regression fit runs here.  Returns what PERF.md records."""
+    import torch
+    from repro_torch.core.dataset import from_numpy
+    from repro_torch.kernels import feat_hist
+    t_phase = time.perf_counter()
+    reg = from_numpy(maj_train.num, None, regression_target(maj_train),
+                     task="regression")
+    _, info_e = run_fit(args, reg, regression_hist_params(args),
+                        {"feat_hist": feat_hist}, "regression hist (e) local")
+    del reg
+    refs = dict(refs, e=info_e["sha256"], d=refs["b"])
+    torch.cuda.empty_cache()
+    work = ROOT / "build" / "repro_torch" / "dist"
+    shutil.rmtree(work, ignore_errors=True)
+    work.mkdir(parents=True)
+    cmd = [sys.executable, str(Path(__file__).resolve()), "--seed",
+           str(args.seed), "--train-log2n", str(args.train_log2n), "--depth",
+           str(args.depth)] + (["--src", str(args.src)] if args.src else [])
+    procs, outs = [], []
+    t0 = time.perf_counter()
+    try:
+        procs = [subprocess.Popen(
+            cmd + ["--dist-worker", str(r), str(DIST_WORLD),
+                   str(work / "store")],
+            stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
+            for r in range(DIST_WORLD)]
+        for r, p in enumerate(procs):
+            text, _ = p.communicate(timeout=DIST_TIMEOUT)
+            outs.append(text)
+            if p.returncode != 0:
+                fail(f"phase 10: rank {r} exited {p.returncode}:\n"
+                     f"{text[-4000:]}")
+    finally:
+        for p in procs:
+            if p.poll() is None:
+                p.kill()
+                p.wait()
+        shutil.rmtree(work, ignore_errors=True)
+    spawn_s = time.perf_counter() - t0
+    ranks = []
+    for r, text in enumerate(outs):
+        lines = [ln for ln in text.splitlines()
+                 if ln.startswith("DIST-RESULT ")]
+        if len(lines) != 1:
+            fail(f"phase 10: rank {r} printed no result:\n{text[-4000:]}")
+        ranks.append(json.loads(lines[0][len("DIST-RESULT "):]))
+    log(f"  {DIST_WORLD} ranks on one card over gloo, collectives staged "
+        f"through the host: {ranks[0]['staged']}; workers {spawn_s:.1f} s")
+    out = {"staged": ranks[0]["staged"], "workers_s": spawn_s, "fits": {}}
+    labels = {"a": "(a) leo-2^23 defaults, exact segment + categorical, "
+                   "(2, 1)",
+              "b": "(b) majority-hist-2^23, (2, 2)",
+              "c": "(c) majority exact segment, (2, 2)",
+              "d": "(d) majority fit_streamed, chunk 2^20, (2, 2)",
+              "e": "(e) majority regression hist, (2, 2)",
+              "f": "(f) make_sharded_evaluate, (1, 4)"}
+    for key, label in labels.items():
+        per = [(r["rank"], r["fits"][key]) for r in ranks if key in r["fits"]]
+        if not per:
+            fail(f"phase 10 {label}: no rank ran it")
+        shas = {f["sha256"] for _, f in per}
+        walls = [round(f["wall_s"], 3) for _, f in per]
+        rec = dict(ranks=[r for r, _ in per], wall_s=walls)
+        if key == "f":
+            if not all(f["equal"] for _, f in per) or len(shas) != 1:
+                fail(f"phase 10 {label}: sharded bits differ from local "
+                     f"evaluation or between ranks")
+            rec.update(local_s=[round(f["local_s"], 4) for _, f in per],
+                       collectives=per[0][1]["levels"])
+            log(f"  {label}: equal to local evaluation on every rank; "
+                f"walls {walls} s (local {rec['local_s']} s); collectives "
+                f"{json.dumps(rec['collectives'])}")
+            out["fits"][key] = rec
+            continue
+        if len(shas) != 1:
+            fail(f"phase 10 {label}: the ranks grew different trees")
+        if shas != {refs[key]}:
+            fail(f"phase 10 {label}: the sharded trees differ from the "
+                 f"local fit's ({shas.pop()[:16]} != {refs[key][:16]})")
+        launches = [f["launches"] for _, f in per]
+        steps = [f["steps"] for _, f in per]
+        want = {"a": "cat_hist", "b": "feat_hist", "d": "feat_hist",
+                "e": "feat_hist"}
+        for (r, f) in per:
+            kern = want.get(key) if key != "d" else None
+            if kern and f["launches"][kern] != f["steps"]:
+                fail(f"phase 10 {label}: rank {r} launched {kern} "
+                     f"{f['launches'][kern]} times in {f['steps']} levels")
+            if key == "d" and f["launches"]["feat_hist"] != \
+                    f["table_chunk_steps"]:
+                fail(f"phase 10 {label}: rank {r} launched feat_hist "
+                     f"{f['launches']['feat_hist']} times for "
+                     f"{f['table_chunk_steps']} table chunks")
+            if f["launches"]["split_scan"]:
+                fail(f"phase 10 {label}: rank {r} launched split_scan")
+        if key in want:         # (c) launches no kernel
+            checks = [f["shard_check"] for _, f in per]
+            for (r, f), chk in zip(per, checks):
+                if key == "e" and not (chk["fixed"] and chk["scales"]):
+                    fail(f"phase 10 {label}: rank {r}'s kept call did not "
+                         f"take the global scales with fixed=True: {chk}")
+                if not chk["equal"]:
+                    fail(f"phase 10 {label}: rank {r}'s {want[key]} "
+                         f"wrapper differs from its plain version on call "
+                         f"{SHARD_CHECK_CALL} of its shard: {chk}")
+            log(f"  {label}: {want[key]} bit-equal to its plain version on "
+                f"call {SHARD_CHECK_CALL} of every rank's shard: "
+                f"{json.dumps(checks[0])}")
+            rec["shard_check"] = checks
+        if key == "b":
+            for r, f in per:
+                got = [lv.get("all_reduce_sum@data", [0, 0])[1]
+                       for lv in f["levels"]]
+                if got != f["expected_bytes"]:
+                    fail(f"phase 10 {label}: rank {r}'s all-reduce bytes "
+                         f"per level {got} != hist_table_bytes / F "
+                         f"{f['expected_bytes']}")
+            log(f"  {label}: all-reduce bytes per level equal "
+                f"LevelStats.hist_table_bytes / F on every rank: "
+                f"{per[0][1]['expected_bytes']}")
+        peaks = [round(f["peak_bytes"] / 2**30, 3) for _, f in per]
+        coll = {}
+        for lv in per[0][1]["levels"]:
+            for name, (calls, nbytes, secs) in lv.items():
+                c = coll.setdefault(name, [0, 0, 0.0])
+                c[0] += calls
+                c[1] += nbytes
+                c[2] += secs
+        rec.update(sha256=per[0][1]["sha256"], peak_gib=peaks,
+                   launches=launches, steps=steps,
+                   collectives_rank0=coll,
+                   levels_rank0=per[0][1]["levels"])
+        log(f"  {label}: every rank's trees equal the local fit's "
+            f"({refs[key][:16]}); walls {walls} s, peaks {peaks} GiB, "
+            f"launches {json.dumps(launches)} in {steps} levels; rank "
+            f"{per[0][0]}'s collectives (calls, bytes, s): "
+            f"{json.dumps(coll)}")
+        for i, lv in enumerate(per[0][1]["levels"]):
+            log(f"    level {i}: {json.dumps(lv)}")
+        out["fits"][key] = rec
+    # the multi-process smoke entry point at its default device, the card
+    from repro_torch.launch import multihost_smoke
+    t1 = time.perf_counter()
+    smoke = multihost_smoke.main(2)
+    out["multihost_smoke"] = dict(smoke, seconds=time.perf_counter() - t1)
+    log(f"  multihost_smoke.main(2) on the card: {smoke}, "
+        f"{out['multihost_smoke']['seconds']:.1f} s")
+    out["phase_s"] = time.perf_counter() - t_phase
+    log(f"  phase 10 total {out['phase_s']:.1f} s")
+    log(f"  phase 10 {json.dumps(out)}")
+    return out
+
+
 def busy_within(merged, lo, hi) -> float:
     """Device-busy microseconds inside [lo, hi], from sorted disjoint
     busy intervals."""
@@ -2124,6 +2604,11 @@ def main() -> int:
     ap.add_argument("--profile", action="store_true",
                     help="profile a third fit of each cell: device time "
                          "per part, idle share, the host's book")
+    ap.add_argument("--dist", action="store_true",
+                    help="build, then only the local fits phase 10 compares "
+                         "against and phase 10")
+    ap.add_argument("--dist-worker", nargs=3, default=None,
+                    help=argparse.SUPPRESS)
     args = ap.parse_args()
 
     src = (args.src or ROOT / "src").resolve()
@@ -2137,6 +2622,8 @@ def main() -> int:
         print("chip_smoke: no CUDA device; this check runs on the card",
               file=sys.stderr)
         return 1
+    if args.dist_worker:
+        return dist_worker(args)
     dev = torch.device("cuda", 0)
     t_start = time.perf_counter()
 
@@ -2146,7 +2633,7 @@ def main() -> int:
          "--format=csv,noheader"], capture_output=True, text=True,
         check=True).stdout.strip().splitlines()[0]
     log(f"  torch {torch.__version__}, CUDA {torch.version.cuda}, "
-        f"{torch.cuda.get_device_name(0)}")
+        f"{torch.cuda.get_device_name(0)}; nvidia-smi: {smi}")
 
     log("phase 1: build the kernels")
     from repro_torch.kernels import _build
@@ -2166,7 +2653,7 @@ def main() -> int:
     cut = 1 << args.train_log2n
     from repro_torch.core.dataset import from_numpy
     if not (args.exact_levels or args.hist_levels or args.stream
-            or args.forests or args.gbt):
+            or args.forests or args.gbt or args.dist):
         phase2(args, dev)
         deep_fit(args, dev)
     if args.hist_levels:
@@ -2223,6 +2710,13 @@ def main() -> int:
         f"majority data: {maj_train.n} + {maj_test.n} rows, "
         f"{maj_train.m_num} numeric columns; made in "
         f"{time.perf_counter() - t0:.2f} s")
+    if args.dist:
+        log("phase 10: the local fits it compares against")
+        refs = dist_refs(args, train, maj_train)
+        log("phase 10: sharded training across ranks on the card")
+        phase10(args, dev, maj_train, refs)
+        log(f"  total {time.perf_counter() - t_start:.1f} s")
+        return 0
     if args.forests:
         log("phase 3: train on the card")
         rf, _ = phase3(args, dev, train)
@@ -2254,17 +2748,24 @@ def main() -> int:
                                   maj_test)
 
     log("phase 6: the reference's default path")
-    phase6(args, dev, train, maj_train, exact_trees, maj_exact)
+    info6 = phase6(args, dev, train, maj_train, exact_trees, maj_exact)
+    refs = {"a": info6["a"]["sha256"], "b": hist_b["sha256"],
+            "c": tree_digest(maj_exact.pop("trees"))}
 
     log("phase 7: streamed training")
     phase7(args, dev, src, maj_train, hist_b.pop("trees"))
-    del maj_train, maj_test
 
     log("phase 8: boosted trees on the card")
     gbt_a, gbt_info = phase8(args, dev, train, test)
 
     log("phase 9: serving on the card")
     phase9(args, dev, exact_trees, test, gbt_a)
+    del gbt_a
+
+    log("phase 10: sharded training across ranks on the card")
+    dist_info = phase10(args, dev, maj_train, refs)
+    del maj_train, maj_test
+    sharded = {"cat_hist": "a", "feat_hist": "b"}
 
     kernels = []
     sources = {"split_scan": ("src/repro_torch/csrc/split_scan.cu",
@@ -2288,7 +2789,9 @@ def main() -> int:
             gbt={label: dict(launches=info["launches"][name],
                              **info["kernels"][name])
                  for label, info in gbt_info["fits"].items()
-                 if name in info["kernels"]}))
+                 if name in info["kernels"]},
+            sharded=({sharded[name]: [x[name] for x in dist_info["fits"][
+                sharded[name]]["launches"]]} if name in sharded else {})))
     log(f"  total {time.perf_counter() - t_start:.1f} s")
     print(json.dumps({"kernels": kernels}), flush=True)
     print(smi, flush=True)

@@ -230,7 +230,10 @@ class RandomForest:
             engine=None, cat_engine=None) -> "RandomForest":
         """Train the forest: presort once (§2.1) — and in hist mode quantize
         once — then one batched level step per depth for each group of
-        `tree_batch` trees."""
+        `tree_batch` trees.  `engine`/`cat_engine` replace the numeric and
+        categorical split engines, e.g. the mesh engines of
+        `repro_torch.core.distributed`, called in every rank of the mesh
+        with the same arguments."""
         if isinstance(ds, RowSource):
             raise TypeError(
                 "fit() trains from a fully materialized TabularDataset; "

@@ -83,8 +83,9 @@ class GBTModel:
             cat_engine=None) -> "GBTModel":
         """Fit the boosted rounds: presort once (and in hist mode quantize
         once), then one `tree.build_tree` a round.  `engine`/`cat_engine`
-        take the local `repro_torch.core.level` engines that
-        `build_forest` takes."""
+        take the engines `build_forest` takes: the local
+        `repro_torch.core.level` engines or the mesh engines of
+        `repro_torch.core.distributed`."""
         p = self.params
         dev = resolve_device(self.device)
         ds.validate()

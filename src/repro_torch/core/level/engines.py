@@ -112,6 +112,11 @@ class SplitEngine:
         """cand is (T, m, L+1) bool (leaf 0 = False)."""
         raise NotImplementedError
 
+    def row_shards(self) -> int:
+        """How many row shards the engine splits n into: n must stay
+        divisible by it (a mesh engine's `data` axis; 1 on one device)."""
+        return 1
+
     # -- out-of-core streaming ----------------------------------------------
     #
     # A streaming hist engine splits its table build into a chunk
@@ -136,7 +141,13 @@ class SplitEngine:
         raise NotImplementedError
 
     def stream_finalize(self, acc):
-        """The accumulator as merged (T, m_num, Lp+1, B, S) tables."""
+        """The accumulator as merged (T, m_num, Lp+1, B, S) tables (a mesh
+        engine: the tables of its own columns)."""
+        raise NotImplementedError
+
+    def score_tables(self, tables, cand, st: LevelStatics):
+        """The (gains, bin cuts) of `stream_finalize`'s tables, each (T,
+        m_num, Lp+1); cand (T, m_num, Lp+1)."""
         raise NotImplementedError
 
 
@@ -317,6 +328,11 @@ class HistNumeric(SplitEngine):
     def stream_finalize(self, acc):
         return acc
 
+    def score_tables(self, tables, cand, st):
+        with record_function("level.hist_score"):
+            return splits.best_numeric_split_histogram(
+                tables, cand, st.impurity, st.task, st.min_records)
+
     def supersplits(self, inp, st, Lp, cand):
         Wb = Lp // 2 + 1 if st.subtract else Lp + 1
         with record_function("level.hist_tables"):
@@ -330,10 +346,7 @@ class HistNumeric(SplitEngine):
                                             inp.slot_of)
             else:
                 tables = packed
-        with record_function("level.hist_score"):
-            g, c = splits.best_numeric_split_histogram(
-                tables, cand, st.impurity, st.task, st.min_records)
-        return g, c, tables
+        return (*self.score_tables(tables, cand, st), tables)
 
 
 def _score_tables(tables, cand, st):

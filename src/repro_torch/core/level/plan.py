@@ -28,6 +28,7 @@ ranges cost a few microseconds per level.
 from __future__ import annotations
 
 import dataclasses
+import math
 from typing import Optional
 
 import torch
@@ -127,6 +128,15 @@ class LevelPlan:
         rebuilds."""
         return self.use_bin_cuts and self.numeric.carries_tables \
             and self.hist_subtract and self.task == "classification"
+
+    @property
+    def row_shards(self) -> int:
+        """The row-shard count n must stay divisible by (pruning rounds
+        its drop down to it, the streamed driver pads its chunks to it).
+        A sharded categorical engine can ride a local numeric one, so the
+        bound is the lcm of both engines'."""
+        return math.lcm(*(e.row_shards() for e in
+                          (self.numeric, self.categorical) if e is not None))
 
 
 def make_plan(params, *, m_num: int, m_cat: int, max_arity: int,
@@ -510,7 +520,8 @@ def _stream_finalize_step(acc, *, plan: LevelPlan):
     """(merged (T, m, L+1, B, S) tables, totals (T, L+1, S)).  The totals
     are column 0's table summed over its bins: every in-bag row lands in
     exactly one bin, so for integer-valued classification counts this is
-    the per-row sum bit for bit."""
+    the per-row sum bit for bit (under a mesh engine, the first of the
+    rank's own columns, which gives the same sums)."""
     merged = plan.numeric.stream_finalize(acc)
     return merged, merged[:, 0].sum(2)
 
@@ -524,8 +535,6 @@ def _stream_score_step(tables, splittable_p, fkeys, depth, *,
     new_right are what the next level's chunk steps replay."""
     with record_function("level.candidates"):
         cand = _candidates(fkeys, depth, splittable_p, Lp, plan)
-    with record_function("level.hist_score"):
-        g, cuts = splits.best_numeric_split_histogram(
-            tables, cand[:, :plan.m_num], plan.impurity, plan.task,
-            plan.min_records)
+    g, cuts = plan.numeric.score_tables(tables, cand[:, :plan.m_num],
+                                        plan.statics)
     return _winners(g, cuts, None, splittable_p, plan)

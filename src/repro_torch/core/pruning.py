@@ -9,22 +9,27 @@ Dropping any subset of closed rows leaves the trees unchanged, since a
 closed row never counts toward a split again; the batched driver drops
 only rows closed in EVERY tree of the batch, so each tree's closed set
 contains them and each tree's leaf-ordered blocks survive the filter.
+Under a mesh engine the drop is rounded down to the row-shard width, so
+that n stays divisible by it, and the first `drop` closed rows go.
 """
 from __future__ import annotations
 
 import torch
 
 
-def plan_drop(n: int, closed: int, frac: float) -> int:
-    """How many closed rows to drop (0 = do not prune this level): all of
-    them once they reach `frac` of the n rows, and never all n rows.
-
-    The reference also rounds the count down to a mesh engine's row-shard
-    width and keeps the first rows of its closed set (`keep_mask`); on one
-    device every closed row goes, so the kept rows are the open ones."""
+def plan_drop(n: int, closed: int, row_shards: int, frac: float) -> int:
+    """How many closed rows to drop (0 = do not prune this level): once
+    they reach `frac` of the n rows, all of them rounded down to a
+    multiple of `row_shards` (1 on one device), and never all n rows."""
     if n <= 0 or closed <= 0 or closed / n < frac:
         return 0
-    return closed if closed < n else 0
+    drop = closed - closed % row_shards
+    return drop if 0 < drop < n else 0
+
+
+def keep_mask(closed_mask: torch.Tensor, drop: int) -> torch.Tensor:
+    """(n,) bool: every row but the first `drop` closed rows (row order)."""
+    return ~closed_mask | (torch.cumsum(closed_mask, 0) > drop)
 
 
 def compact_rows(*, keep: torch.Tensor, leaf_of, ord_idx, sorted_vals,
@@ -32,7 +37,7 @@ def compact_rows(*, keep: torch.Tensor, leaf_of, ord_idx, sorted_vals,
     """Filter every row-indexed array of the batched driver down to the
     kept rows.
 
-    keep (n,) bool, the rows open in some tree; leaf_of/w (T, n); stats
+    keep (n,) bool, the rows kept (`keep_mask`); leaf_of/w (T, n); stats
     (T, n, S); labels (n,); num_cols/cat_cols/bin_of (m, n) column-major
     (bin_of None outside hist mode); ord_idx (T, m, n) (None outside the
     leaf-ordered layout); sorted_vals/sorted_idx (m, n) (None where the

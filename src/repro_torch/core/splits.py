@@ -83,13 +83,25 @@ def split_gain(left: torch.Tensor, right: torch.Tensor,
 # Numerical — the Alg. 1 recurrence, in row blocks
 # ---------------------------------------------------------------------------
 
+def _none_to_neg(v_init):
+    """The "no earlier in-bag value" sentinel: the reference passes +inf
+    (or any non-finite value); the scorers compare against −inf."""
+    return torch.where(torch.isfinite(v_init), v_init, NEG)
+
+
 def scan_supersplit(vals, leaf, w, stats, cand, totals, impurity="gini",
-                    task="classification", min_records=1.0, block=None):
+                    task="classification", min_records=1.0, block=None,
+                    h_init=None, v_init=None):
     """Alg. 1 over rows in scan order, batched over leading dimensions.
 
     vals/leaf/w (..., n) in per-column presorted order; stats (..., n, S);
     cand (..., L1) bool (leaf 0 = False); totals (..., L1, S) per-leaf stat
     totals.  Returns (best_gain, best_threshold), each (..., L1).
+
+    `h_init` (..., L1, S) and `v_init` (..., L1) resume the scan where an
+    earlier row shard of the presorted order left it: each leaf's stat
+    prefix and last in-bag value before this shard (a non-finite v_init
+    means none).  `totals` are then the GLOBAL per-leaf totals.
 
     The recurrence of the reference's sequential scan, evaluated a block of
     rows at a time as the Pallas `split_scan` kernel does: the exclusive
@@ -115,8 +127,10 @@ def scan_supersplit(vals, leaf, w, stats, cand, totals, impurity="gini",
     cnt = count_fn(task)
 
     active = (leaf > 0) & (w > 0) & torch.gather(cand, 1, leaf)
-    H = torch.zeros((B, L1, S), dtype=torch.float32, device=dev)
-    v = torch.full((B, L1), NEG, dtype=torch.float32, device=dev)
+    H = (torch.zeros((B, L1, S), dtype=torch.float32, device=dev)
+         if h_init is None else h_init.reshape(B, L1, S).to(torch.float32))
+    v = (torch.full((B, L1), NEG, dtype=torch.float32, device=dev)
+         if v_init is None else _none_to_neg(v_init.reshape(B, L1)))
     best_s = torch.full((B, L1), NEG, dtype=torch.float32, device=dev)
     best_t = torch.zeros((B, L1), dtype=torch.float32, device=dev)
     lanes = torch.arange(L1, device=dev)
@@ -174,19 +188,25 @@ def best_numeric_split_scan(
     impurity: str = "gini",
     task: str = "classification",
     min_records: float = 1.0,
-    totals: torch.Tensor | None = None,   # (L+1, S) per-leaf totals
+    totals: torch.Tensor | None = None,   # (L+1, S) GLOBAL per-leaf totals
+    h_init: torch.Tensor | None = None,   # (L+1, S) earlier shards' prefix
+    v_init: torch.Tensor | None = None,   # (L+1,) their last in-bag value
 ) -> tuple[torch.Tensor, torch.Tensor]:
     """Alg. 1 for one column: (best_gain, best_threshold), each (L+1,);
     entry 0 (closed) unused.  Totals default to the column's own in-bag
-    per-leaf sums."""
+    per-leaf sums; `h_init`/`v_init` resume a row shard of the presorted
+    order (`scan_supersplit`), and such a call must pass global totals."""
     L1 = num_leaves + 1
     if totals is None:
+        if h_init is not None:
+            raise ValueError("a row-sharded call must pass GLOBAL totals")
         contrib = torch.where((w_sorted > 0)[:, None], stats_sorted, 0.0)
         totals = torch.zeros((L1, stats_sorted.shape[-1]),
                              dtype=torch.float32, device=vals_sorted.device)
         totals.index_add_(0, leaf_sorted.long(), contrib)
     return scan_supersplit(vals_sorted, leaf_sorted, w_sorted, stats_sorted,
-                           cand_leaf, totals, impurity, task, min_records)
+                           cand_leaf, totals, impurity, task, min_records,
+                           h_init=h_init, v_init=v_init)
 
 
 # ---------------------------------------------------------------------------
@@ -252,7 +272,7 @@ def _segmented_first_max(gain, tau, lengths):
 
 def _score_leaf_blocks(vals, lf, inbag, stats, cand, start_idx, end_idx,
                        lengths, num_leaves, impurity, task, min_records,
-                       totals):
+                       totals, h_init=None, v_init=None):
     """The exact supersplit of B rows of n positions in (leaf, value) order.
 
     vals/inbag (B, n); stats (B, n, S); cand (B, L+1); lf, start_idx,
@@ -266,7 +286,9 @@ def _score_leaf_blocks(vals, lf, inbag, stats, cand, start_idx, end_idx,
     Prefix sums run in float64, one 1-D scan per stat, and are cast:
     classification stats are integer bag counts, exact below 2^53 (in
     float32 they would be exact only below 2^24), and regression sums
-    carry float64's rounding, not float32's.
+    carry float64's rounding, not float32's.  `h_init` (B, L+1, S) and
+    `v_init` (B, L+1) resume a row shard (`best_numeric_split_segment`):
+    the prefix is added in float64 before the cast.
     """
     B, n = vals.shape
     S = stats.shape[-1]
@@ -277,7 +299,12 @@ def _score_leaf_blocks(vals, lf, inbag, stats, cand, start_idx, end_idx,
     cum_excl = torch.stack([a.reshape(-1).cumsum(0) for a in acc]).view(
         S, B, n) - acc
     sidx = start_idx.expand(B, n).expand(S, B, n)
-    left = (cum_excl - torch.gather(cum_excl, 2, sidx)).to(torch.float32)
+    left = cum_excl - torch.gather(cum_excl, 2, sidx)
+    if h_init is not None:      # the earlier row shards' per-leaf prefix
+        hi = h_init.double().permute(2, 0, 1)            # (S, B, L+1)
+        left = left + torch.gather(hi, 2, lf.long().expand(B, n).expand(
+            S, B, n))
+    left = left.to(torch.float32)
     if totals is None:
         eidx = end_idx.expand(B, n).expand(S, B, n)
         parent = (torch.gather(cum_excl, 2, eidx) + torch.gather(acc, 2, eidx)
@@ -290,6 +317,9 @@ def _score_leaf_blocks(vals, lf, inbag, stats, cand, start_idx, end_idx,
     left = left.permute(1, 2, 0)                         # (B, n, S) view
     right = parent - left
     pv = _segmented_cummax_exclusive(vals, inbag, start_idx)
+    if v_init is not None:      # the earlier row shards' last in-bag value
+        pv = torch.maximum(pv, torch.gather(_none_to_neg(v_init), 1,
+                                            lf.long().expand(B, n)))
     ok = inbag & torch.gather(cand, 1, lf.long().expand(B, n)) \
         & (vals > pv) & torch.isfinite(pv) \
         & (cnt(left) >= min_records) & (cnt(right) >= min_records)
@@ -315,6 +345,8 @@ def best_numeric_split_segment(
     task: str = "classification",
     min_records: float = 1.0,
     totals: torch.Tensor | None = None,   # (..., L+1, S) per-leaf totals
+    h_init: torch.Tensor | None = None,   # (..., L+1, S) earlier shards
+    v_init: torch.Tensor | None = None,   # (..., L+1) earlier shards
 ) -> tuple[torch.Tensor, torch.Tensor]:
     """Exact vectorized supersplit: a stable counting sort by leaf, then
     segmented prefix sums over each leaf's value-ascending block.
@@ -322,7 +354,14 @@ def best_numeric_split_segment(
     Leading dimensions (columns) batch.  Returns (best_gain,
     best_threshold), each (..., L+1); totals default to each column's own
     in-bag per-leaf sums.  The seed builder's default scorer.
+
+    A row shard of the presorted order resumes where the earlier shards
+    left off: `h_init` is each leaf's stat prefix before the shard and
+    `v_init` its last in-bag value there (non-finite, the reference's
+    +inf, = none), and `totals` must then be the GLOBAL per-leaf totals.
     """
+    if totals is None and h_init is not None:
+        raise ValueError("a row-sharded call must pass GLOBAL totals")
     lead = vals_sorted.shape[:-1]
     n = vals_sorted.shape[-1]
     S = stats_sorted.shape[-1]
@@ -344,10 +383,11 @@ def best_numeric_split_segment(
     start_idx = (ends - lengths)[seg] - base
     if totals is not None:
         totals = totals.reshape(B, L1, S)
-    g, t = _score_leaf_blocks(a, lf, (w > 0) & (lf > 0), st,
-                              cand_leaf.reshape(B, L1), start_idx, end_idx,
-                              lengths, num_leaves, impurity, task,
-                              min_records, totals)
+    g, t = _score_leaf_blocks(
+        a, lf, (w > 0) & (lf > 0), st, cand_leaf.reshape(B, L1), start_idx,
+        end_idx, lengths, num_leaves, impurity, task, min_records, totals,
+        h_init=None if h_init is None else h_init.reshape(B, L1, S),
+        v_init=None if v_init is None else v_init.reshape(B, L1))
     return g.reshape(lead + (L1,)), t.reshape(lead + (L1,))
 
 

@@ -554,12 +554,13 @@ def build_forest(
         # the leaf order is current (the step before max_depth, which skips
         # its partition, never reaches here: the loop breaks above), and
         # its trigger rode home in the previous level's struct.
-        drop = pruning.plan_drop(n, closed_np, params.prune_closed_frac)
+        drop = pruning.plan_drop(n, closed_np, plan.row_shards,
+                                 params.prune_closed_frac)
         if drop:
             with record_function("fit.prune"):
                 (leaf_of, ord_idx, sorted_vals, sorted_idx, bin_of, num_cols,
                  cat_cols, stats, w, labels) = pruning.compact_rows(
-                    keep=(leaf_of > 0).any(0),
+                    keep=pruning.keep_mask(~(leaf_of > 0).any(0), drop),
                     leaf_of=leaf_of, ord_idx=ord_idx,
                     sorted_vals=sorted_vals, sorted_idx=sorted_idx,
                     bin_of=bin_of, num_cols=num_cols, cat_cols=cat_cols,
@@ -777,7 +778,11 @@ def build_forest_streamed(
     Restrictions (as the reference's, with its errors): hist mode,
     classification, numeric columns only, and `params.num_bins` equal to
     the source's.  The plan always builds plain tables (no subtraction:
-    every chunk is read anyway), and a single device (row_shards = 1).
+    every chunk is read anyway).  A mesh engine
+    (`level.sharded.ShardedHistNumeric`) takes its row shard of every
+    chunk, whose width is padded to a multiple of the row-shard count
+    (pad rows ride with w = 0 and leaf 0), and merges its accumulator
+    once a level.
 
     The trees equal `build_forest`'s on the same quantized rows, node for
     node, at any chunk size.
@@ -845,6 +850,7 @@ def build_forest_streamed(
     Ls = [1] * T
     start_depth = 0
     chunk = max(1, int(source.chunk_size))
+    rs = plan.row_shards
     # the previous level's decisions, which the chunk steps replay
     dec = (torch.zeros((T, 1), dtype=torch.int32, device=dev),
            torch.zeros((T, 1), dtype=torch.float32, device=dev),
@@ -892,7 +898,8 @@ def build_forest_streamed(
         else:           # the last level: per-leaf stat totals only
             acc = torch.zeros((T, Lp + 1, S_dim), dtype=torch.float32,
                               device=dev)
-        C = max(1, min(chunk, n_act))
+        # fixed-shape chunks, padded to a row-shard multiple
+        C = max(rs, -(-min(chunk, max(n_act, 1)) // rs) * rs)
         stage = _ChunkStage(T, m_num, C, params.num_bins, dev)
         for lo in range(0, n_act, C):
             hi = min(lo + C, n_act)

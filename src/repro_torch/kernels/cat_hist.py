@@ -24,7 +24,7 @@ CPU tensors; so do `leaf_buckets` and its plain version.
 Exactness: classification tables are integer counts below 2^24, so the
 kernel's float atomics give the plain version's table bit for bit.
 Regression tables are summed in 64-bit fixed point (deterministic run to
-run, see the source), and so is the plain version (`fixed_point_tables`):
+run, see the source), and so is the plain version (`fixed_point_sums`):
 the two give the same bits, on the card and on the CPU.  (A float32
 `index_add_` of a cell of millions of rows, as GBT's shallow levels have,
 is off from the exact sum by far more than one float32 rounding.)
@@ -48,26 +48,43 @@ launches = 0                # kernel launches (tree groups of <= 8 trees)
 
 
 def cat_hist_plain(x, leaf, w, y, *, L1, V, num_stats,
-                   task="classification"):
+                   task="classification", scales=None, fixed=False):
     """The plain torch version: stats per row, one flat scatter-add.
     Regression sums in the kernel's 64-bit fixed point
-    (`fixed_point_tables`), so both give the same bits."""
+    (`fixed_point_sums`), so both give the same bits; `scales` and
+    `fixed` as for `cat_hist`."""
     stats = splits.row_stats(y, w, num_stats, task)            # (T, n, S)
     if task != "regression":
+        _check_fixed(task, scales, fixed)
         return splits.categorical_count_tables(x, leaf, w, stats, L1 - 1, V)
-    return fixed_point_tables(
+    if scales is None:
+        scales = fixed_point_scales(leaf, w, y, L1)
+    acc = fixed_point_sums(
         lambda q: splits.categorical_count_tables(x, leaf, w, q, L1 - 1, V),
-        stats, fixed_point_scales(leaf, w, y, L1))
+        stats, scales)
+    return acc if fixed else from_fixed_point(acc, scales)
 
 
-def fixed_point_tables(scatter, stats, scales):
+def _check_fixed(task, scales, fixed):
+    """Explicit scales and int64 sums exist for regression tables only."""
+    if scales is not None or fixed:
+        raise ValueError(f"{task} tables are float counts: scales and "
+                         f"fixed=True are for regression only")
+
+
+def fixed_point_sums(scatter, stats, scales):
     """`scatter` (a plain table's scatter-add) over the row stats in the
     kernels' 64-bit fixed point: each float32 stat times its channel's
-    power-of-two scale, rounded to the nearest integer (ties to even), the
-    int64 sums exact in any order, then times 1/scale and rounded once to
-    float32."""
+    power-of-two scale, rounded to the nearest integer (ties to even);
+    the int64 sums are exact in any order."""
     s = torch.tensor(scales, dtype=torch.float64, device=stats.device)
-    acc = scatter(torch.round(stats.double() * s).long())
+    return scatter(torch.round(stats.double() * s).long())
+
+
+def from_fixed_point(acc, scales):
+    """int64 fixed-point sums times 1/scale, rounded once to float32: the
+    kernels' last pass."""
+    s = torch.tensor(scales, dtype=torch.float64, device=acc.device)
     return (acc.double() * (1.0 / s)).to(torch.float32)
 
 
@@ -109,15 +126,22 @@ def _check_inputs(x, leaf, w, y):
                              f"x on {x.device}")
 
 
+def fixed_point_mags(leaf, w, y, L1):
+    """The largest |stat| per regression channel over the rows that land
+    in a table, (3,) float32 on the rows' device.  Row shards take the
+    maximum of theirs (an all-reduce) to share one set of scales."""
+    inb = (w > 0) & (leaf > 0) & (leaf < L1)
+    wy = w * y
+    return torch.stack([torch.where(inb, w, 0.0).abs().amax(),
+                        torch.where(inb, wy, 0.0).abs().amax(),
+                        torch.where(inb, wy * y, 0.0).abs().amax()])
+
+
 def fixed_point_scales(leaf, w, y, L1):
     """One power-of-two scale per regression stat channel: the largest that
     keeps n · max|stat| · scale below 2^61, so no int64 sum can overflow."""
-    inb = (w > 0) & (leaf > 0) & (leaf < L1)
-    wy = w * y
-    mags = torch.stack([torch.where(inb, w, 0.0).abs().amax(),
-                        torch.where(inb, wy, 0.0).abs().amax(),
-                        torch.where(inb, wy * y, 0.0).abs().amax()]).tolist()
-    return power_of_two_scales(mags, leaf.shape[-1])
+    return power_of_two_scales(fixed_point_mags(leaf, w, y, L1).tolist(),
+                               leaf.shape[-1])
 
 
 def power_of_two_scales(mags, n: int) -> list:
@@ -323,8 +347,10 @@ def zero_split_tiles(out, work, plan: TilePlan) -> None:
         out[t, :, lt * plan.LT:(lt + 1) * plan.LT].zero_()
 
 
-def _group_tables(lib, plan, x, leaf, w, y, L1, V, S, task, scales, out):
-    """One tree group's tables into `out` (T, m, L1, V, S): one call that
+def _group_tables(lib, plan, x, leaf, w, y, L1, V, S, task, scales, out,
+                  acc):
+    """One tree group's tables into `out` (T, m, L1, V, S), regression's
+    int64 sums into the zeroed `acc` of the same shape: one call that
     buckets the rows (unless the plan is natural), plans the work on the
     card and builds the tiles; the wrapper only allocates."""
     T, n = leaf.shape
@@ -343,8 +369,6 @@ def _group_tables(lib, plan, x, leaf, w, y, L1, V, S, task, scales, out):
         lists = torch.empty((2 if pack else 3, T, n), dtype=torch.float32,
                             device=dev)
     ints = torch.empty(n_ints, dtype=torch.int32, device=dev)
-    acc = (torch.zeros((T, m, L1, V, S), dtype=torch.int64, device=dev)
-           if task == "regression" else None)
     s0, s1, s2 = scales if scales else (1.0, 1.0, 1.0)
     err = lib.cat_hist_launch(
         TASK[task], int(plan.natural), P(x), P(leaf), P(w), P(y), T, m, n,
@@ -355,12 +379,19 @@ def _group_tables(lib, plan, x, leaf, w, y, L1, V, S, task, scales, out):
     _build.check(err, "cat_hist launch")
 
 
-def cat_hist(x, leaf, w, y, *, L1, V, num_stats, task="classification"):
+def cat_hist(x, leaf, w, y, *, L1, V, num_stats, task="classification",
+             scales=None, fixed=False):
     """Count tables (T, m, L1, V, S): the kernel for CUDA tensors, the
-    plain version for CPU tensors."""
+    plain version for CPU tensors.
+
+    Regression only: `scales` (three powers of two) replaces the scales
+    picked from these rows, and `fixed=True` returns the int64 fixed-point
+    sums instead of the float32 tables.  Row shards pass the scales of the
+    whole row set and add their sums before one `from_fixed_point`, which
+    gives the one-device table bit for bit."""
     if x.device.type == "cpu":
-        return cat_hist_plain(x, leaf, w, y, L1=L1, V=V,
-                              num_stats=num_stats, task=task)
+        return cat_hist_plain(x, leaf, w, y, L1=L1, V=V, num_stats=num_stats,
+                              task=task, scales=scales, fixed=fixed)
     if x.device.type != "cuda":
         raise ValueError(f"cat_hist runs on CUDA or CPU, not {x.device}")
     _check_inputs(x, leaf, w, y)
@@ -372,16 +403,23 @@ def cat_hist(x, leaf, w, y, *, L1, V, num_stats, task="classification"):
     lib = _lib()
     plan = tile_plan(L1, V, S, task, min(SMEM_BUDGET, lib.smem_optin))
     out = torch.empty((T, m, L1, V, S), dtype=torch.float32, device=x.device)
-    scales = (fixed_point_scales(leaf, w, y, L1) if task == "regression"
-              else None)
+    acc = None
+    if task == "regression":
+        if scales is None:
+            scales = fixed_point_scales(leaf, w, y, L1)
+        acc = torch.zeros((T, m, L1, V, S), dtype=torch.int64,
+                          device=x.device)
+    else:
+        _check_fixed(task, scales, fixed)
     group = lib.max_trees
     global launches
     for t0 in range(0, T, group):
         t1 = min(T, t0 + group)
         _group_tables(lib, plan, x, leaf[t0:t1], w[t0:t1], y, L1, V, S, task,
-                      scales, out[t0:t1])
+                      scales, out[t0:t1],
+                      None if acc is None else acc[t0:t1])
         launches += 1
-    return out
+    return acc if fixed else out
 
 
 def bound_bytes(T: int, m: int, n: int, L1: int, V: int, S: int) -> int:

@@ -27,7 +27,7 @@ tensors.
 Exactness, as for `cat_hist`: classification tables are integer counts
 below 2^24, so the kernel's integer counts and float atomics give the
 plain version's table bit for bit; regression tables are summed in 64-bit
-fixed point by both (`cat_hist.fixed_point_tables`), so they give the same
+fixed point by both (`cat_hist.fixed_point_sums`), so they give the same
 bits on both paths.
 """
 from __future__ import annotations
@@ -40,9 +40,9 @@ import torch
 
 from repro_torch.core import splits
 from repro_torch.kernels import _build
-from repro_torch.kernels.cat_hist import (TASK, count_wmax,
+from repro_torch.kernels.cat_hist import (TASK, _check_fixed, count_wmax,
                                           fixed_point_scales,
-                                          fixed_point_tables)
+                                          fixed_point_sums, from_fixed_point)
 
 launches = 0                # kernel launches (tree groups of <= 8 trees)
 
@@ -56,16 +56,21 @@ MANY_COLUMNS = 8            # columns from which the shared path's pass
 
 
 def feat_hist_plain(x, slot, w, y, *, W, B, num_stats,
-                    task="classification"):
+                    task="classification", scales=None, fixed=False):
     """The plain torch version: stats per row, one flat scatter-add.
     Regression sums in the kernel's 64-bit fixed point
-    (`cat_hist.fixed_point_tables`), so both give the same bits."""
+    (`cat_hist.fixed_point_sums`), so both give the same bits; `scales`
+    and `fixed` as for `feat_hist`."""
     stats = splits.row_stats(y, w, num_stats, task)            # (T, n, S)
     if task != "regression":
+        _check_fixed(task, scales, fixed)
         return splits.feature_count_tables(x, slot, w, stats, W - 1, B)
-    return fixed_point_tables(
+    if scales is None:
+        scales = fixed_point_scales(slot, w, y, W)
+    acc = fixed_point_sums(
         lambda q: splits.feature_count_tables(x, slot, w, q, W - 1, B),
-        stats, fixed_point_scales(slot, w, y, W))
+        stats, scales)
+    return acc if fixed else from_fixed_point(acc, scales)
 
 
 def _lib():
@@ -163,12 +168,15 @@ def _check_inputs(x, slot, w, y):
                              f"x on {x.device}")
 
 
-def feat_hist(x, slot, w, y, *, W, B, num_stats, task="classification"):
+def feat_hist(x, slot, w, y, *, W, B, num_stats, task="classification",
+              scales=None, fixed=False):
     """Bin tables (T, m, W, B, S): the kernel for CUDA tensors, the plain
-    version for CPU tensors."""
+    version for CPU tensors.  Regression only: `scales` replaces the
+    scales picked from these rows and `fixed=True` returns the int64
+    fixed-point sums, as for `cat_hist.cat_hist`."""
     if x.device.type == "cpu":
         return feat_hist_plain(x, slot, w, y, W=W, B=B, num_stats=num_stats,
-                               task=task)
+                               task=task, scales=scales, fixed=fixed)
     if x.device.type != "cuda":
         raise ValueError(f"feat_hist runs on CUDA or CPU, not {x.device}")
     _check_inputs(x, slot, w, y)
@@ -181,8 +189,14 @@ def feat_hist(x, slot, w, y, *, W, B, num_stats, task="classification"):
     group = lib.max_trees
     dev = x.device
     out = torch.zeros((T, m, W, B, S), dtype=torch.float32, device=dev)
-    s0, s1, s2 = (fixed_point_scales(slot, w, y, W) if task == "regression"
-                  else (1.0, 1.0, 1.0))
+    acc = None
+    if task == "regression":
+        if scales is None:
+            scales = fixed_point_scales(slot, w, y, W)
+        acc = torch.zeros((T, m, W, B, S), dtype=torch.int64, device=dev)
+    else:
+        _check_fixed(task, scales, fixed)
+    s0, s1, s2 = scales if scales is not None else (1.0, 1.0, 1.0)
     wmax = min(count_wmax(n), 65535.0)      # a weight packs in 16 bits
     P = _build.ptr
     stream = _build.stream_ptr(dev)
@@ -192,11 +206,10 @@ def feat_hist(x, slot, w, y, *, W, B, num_stats, task="classification"):
         plan = hist_plan(t1 - t0, m, n, W, B, S, task,
                          budget=min(SMEM_OPTIN, lib.smem_optin),
                          sms=lib.sm_count)
-        acc = (torch.zeros((t1 - t0, m, W, B, S), dtype=torch.int64,
-                           device=dev) if task == "regression" else None)
         head = (TASK[task], P(x), x.element_size(), P(slot[t0:t1]),
                 P(w[t0:t1]), P(y), t1 - t0, m, n, W, B, S)
-        outs = (P(out[t0:t1]), None if acc is None else P(acc), stream)
+        outs = (P(out[t0:t1]), None if acc is None else P(acc[t0:t1]),
+                stream)
         if plan.shared:
             # the flag, then the packed words (T, n)
             scratch = torch.empty(1 + (t1 - t0) * n, dtype=torch.int32,
@@ -208,7 +221,7 @@ def feat_hist(x, slot, w, y, *, W, B, num_stats, task="classification"):
             err = lib.feat_hist_device_launch(*head, s0, s1, s2, *outs)
         _build.check(err, "feat_hist launch")
         launches += 1
-    return out
+    return acc if fixed else out
 
 
 def bound_bytes(T: int, m: int, n: int, W: int, B: int, S: int,

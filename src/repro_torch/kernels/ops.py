@@ -38,28 +38,35 @@ def split_scan_supersplit(sorted_vals, sorted_idx, leaf_of, w, labels, cand,
 
 
 def categorical_tables(cat_cols, leaf_of, w, labels, *, V, Lp,
-                       task="classification", num_classes=2):
+                       task="classification", num_classes=2, scales=None,
+                       fixed=False):
     """Count tables (T, m_cat, Lp+1, V, S) through the `cat_hist` kernel.
 
     cat_cols (m_cat, n) column-major categories; leaf_of/w (T, n);
     labels (n,).  V is the (max) arity every column's table is padded to.
+    Regression only: explicit fixed-point `scales`, and `fixed=True` for
+    the int64 sums (`cat_hist.cat_hist`).
     """
     return cat_hist.cat_hist(
         cat_cols.contiguous(), leaf_of.contiguous(), w.contiguous(),
         labels.to(torch.float32).contiguous(), L1=Lp + 1, V=V,
-        num_stats=stat_dim(num_classes, task), task=task)
+        num_stats=stat_dim(num_classes, task), task=task, scales=scales,
+        fixed=fixed)
 
 
 def feature_tables(bin_of, slots, w, labels, *, B, W,
-                   task="classification", num_classes=2):
+                   task="classification", num_classes=2, scales=None,
+                   fixed=False):
     """Hist-mode tables (T, m, W, B, S) for ALL numeric columns in one row
     pass, through the `feat_hist` kernel.
 
     bin_of (m, n) packed bucket ids; slots (T, n) scatter slots (0 =
     discard: raw leaf ids on the plain path, packed build slots under
     subtraction); w (T, n); labels (n,); W the slot-axis width.
+    `scales`/`fixed` as for `categorical_tables`.
     """
     return feat_hist.feat_hist(
         bin_of.contiguous(), slots.to(torch.int32).contiguous(),
         w.contiguous(), labels.to(torch.float32).contiguous(), W=W, B=B,
-        num_stats=stat_dim(num_classes, task), task=task)
+        num_stats=stat_dim(num_classes, task), task=task, scales=scales,
+        fixed=fixed)

@@ -71,6 +71,9 @@ def test_port_modules_never_import_jax_or_reference():
                      or m == "repro" or m.startswith("repro."))
         assert not bad, bad
         assert len(names) >= 15, names
+        launch = {"repro_torch.launch.mesh",
+                  "repro_torch.launch.multihost_smoke"}
+        assert launch <= set(names), names
         print(len(names))
     """)
     assert r.returncode == 0, r.stderr

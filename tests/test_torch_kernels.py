@@ -947,3 +947,84 @@ def test_cat_hist_cuda_fractional_weights(cuda):
     kw = dict(L1=65, V=10000, num_stats=2)
     assert torch.equal(cat_hist.cat_hist(*dev, **kw),
                        cat_hist.cat_hist_plain(*dev, **kw))
+
+
+# ---------------------------------------------------------------------------
+# Row shards: explicit scales and the int64 sums (`scales=`, `fixed=True`)
+# ---------------------------------------------------------------------------
+
+def _shard_case(kernel, n=6000, T=2):
+    """Regression inputs, the call that makes the tables from any rows,
+    and the rows' leaf / slot (the table's L1 / W axis)."""
+    if kernel == "cat_hist":
+        x, leaf, w, y = [torch.as_tensor(a) for a in _cat_case(
+            37, n=n, m=3, L=6, C=2, T=T, task="regression", seed=n)]
+        y = y * 40 + 3
+        return (x, leaf, w, y), 7, lambda fn, a, **kw: fn(
+            *a, L1=7, V=37, num_stats=3, task="regression", **kw)
+    x, slot, w, y = _feat_case(255, T, "regression", n=n, m=4, W=9, seed=n)
+    return (x, slot, w, y), 9, lambda fn, a, **kw: fn(
+        *a, W=9, B=255, num_stats=3, task="regression", **kw)
+
+
+def _halves(args):
+    """The two row shards of (cols, rows, w, y), split in plain row order
+    as the hist and categorical engines split them."""
+    h = args[1].shape[1] // 2
+    return [(args[0][:, s], args[1][:, s].contiguous(),
+             args[2][:, s].contiguous(), args[3][s].contiguous())
+            for s in (slice(0, h), slice(h, None))]
+
+
+def _global_scales(args, L1):
+    """The scales every shard shares: the whole row set's n and the max of
+    the shards' magnitudes (the engines' all-reduce max)."""
+    mags = torch.stack([cat_hist.fixed_point_mags(a[1], a[2], a[3], L1)
+                        for a in _halves(args)]).amax(0)
+    return cat_hist.power_of_two_scales(mags.tolist(), args[1].shape[1])
+
+
+@pytest.mark.parametrize("kernel", ["cat_hist", "feat_hist"])
+def test_shard_fixed_sums_add_up_to_the_one_pass_table(kernel):
+    """The shards' int64 sums under the global scales, added and converted
+    once, are the one-pass table bit for bit; those scales are the ones a
+    one-pass call picks from all the rows."""
+    args, L1, call = _shard_case(kernel)
+    fn = getattr(globals()[kernel], kernel)
+    scales = _global_scales(args, L1)
+    assert scales == cat_hist.fixed_point_scales(args[1], args[2], args[3],
+                                                 L1)
+    acc = sum(call(fn, [a.contiguous() for a in half], scales=scales,
+                   fixed=True) for half in _halves(args))
+    assert acc.dtype == torch.int64
+    assert torch.equal(cat_hist.from_fixed_point(acc, scales),
+                       call(fn, args))
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("fixed", [True, False])
+@pytest.mark.parametrize("kernel", ["cat_hist", "feat_hist"])
+def test_shard_scales_cuda_match_plain(cuda, kernel, fixed):
+    """On the card, each shard's call with the global scales (int64 sums
+    with `fixed=True`, float32 tables without) equals the plain version's
+    on the same tensors bit for bit, and the shards' sums add up to the
+    one-pass card table."""
+    args, L1, call = _shard_case(kernel, n=200000)
+    mod = globals()[kernel]
+    fn, plain = getattr(mod, kernel), getattr(mod, f"{kernel}_plain")
+    dev = [a.to(cuda) for a in args]
+    scales = _global_scales(dev, L1)
+    parts = []
+    for half in _halves(dev):
+        half = [a.contiguous() for a in half]
+        before = mod.launches
+        got = call(fn, half, scales=scales, fixed=fixed)
+        assert mod.launches > before
+        want = call(plain, half, scales=scales, fixed=fixed)
+        assert got.dtype == want.dtype == (torch.int64 if fixed
+                                           else torch.float32)
+        assert torch.equal(got, want)
+        parts.append(got)
+    if fixed:
+        assert torch.equal(cat_hist.from_fixed_point(sum(parts), scales),
+                           call(fn, dev))

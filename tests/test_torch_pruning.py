@@ -51,7 +51,7 @@ def test_plan_drop_matches_reference(n, closed, frac):
     """One device: the reference's rule with a row-shard width of 1."""
     from repro.core import pruning as ref_pruning
     reference()
-    assert pruning.plan_drop(n, closed, frac) == \
+    assert pruning.plan_drop(n, closed, 1, frac) == \
         ref_pruning.plan_drop(n, closed, 1, frac)
 
 
@@ -78,7 +78,7 @@ def test_compact_rows_matches_reference():
     stats = np.stack([w * (labels == c) for c in (0, 1)], -1)
     bins = rng.integers(0, 255, (m, n)).astype(np.uint8)
     closed = ~(leaf > 0).any(0)
-    drop = pruning.plan_drop(n, int(closed.sum()), 0.1)
+    drop = pruning.plan_drop(n, int(closed.sum()), 1, 0.1)
     assert drop == closed.sum() > 0
     keep = torch.as_tensor(~closed)
     got = pruning.compact_rows(
