@@ -114,10 +114,41 @@ Phases, each fatal on failure:
      in time, so no wall here is a speed-up.  Then
      `multihost_smoke.main(2)` runs at its default device, the card.
      `--dist` runs phase 1, the local fits and phase 10 alone.
+  11. LM serving (`repro_torch.models`, `serve.engine`'s LM half), weights
+     drawn from --seed on the card, float32 TF32 off unless said: (a)
+     every registered architecture's reduced variant, `prefill_step` at
+     B = 2, P = 12 and 8 `decode_step`s on the card against the same
+     weights on the CPU (logits within atol = rtol = 1e-4; the card fed
+     the CPU's greedy tokens and its own greedy tokens equal to them),
+     decode from an empty cache == the full forward (atol 5e-3, rtol
+     1e-2; MoE at capacity_factor 8), a repeat on the card bit-equal;
+     (b) qwen3-0.6b at full width (28 layers, vocab 151,936, ~751 M
+     params) the same way at P = 32 within 1e-3 (a step whose CPU top-2
+     gap is under 1e-4 is printed as a tie, not failed); (c) those
+     weights in the config's bfloat16: prefill B = 4 x P = 2048, 128
+     decode steps at B = 4 and 64 ending at max_seq 2048, and
+     `BatchedServer` serving three requests for 16 steps twice (same
+     tokens), and `launch.serve.run` at its defaults (its own weights
+     from the seed); tokens/s, p50/p99 ms a step and peak memory, beside
+     its bound (decode: the weights plus the attended cache rows read
+     once over 3.35 TB/s; prefill: the block products, causal attention
+     and last-position head over 989 TFLOP/s bf16); (d) olmoe-1b-7b at
+     full width cut to 2 layers: card == CPU as (b), expert ids equal in
+     every router call, then bfloat16 timings as (c) at B = 4; (e) the
+     mean of (c)'s bfloat16 `forward_hidden` over 2^14 sequences x 32
+     tokens (ids drawn from [0, 64), labelled "token 7 before token 9" as
+     `examples/rf_on_embeddings.py`) as float32 features of a 4-tree
+     depth-10 `backend="kernel"` forest: split_scan must launch, a repeat
+     must grow the same trees, split_scan is held bit-equal to its plain
+     version on every level's inputs of one tree batch and timed at the
+     deepest; the held-out AUC is printed.  `--lm` runs
+     phases 0, 1 and 11 alone (with `--profile`: each timed prefill and
+     8 more decode steps under the profiler).
 Every fit of phases 3, 5, 6 and 8 prints the sha256 of its packed trees
 (`--forests --src DIR` prints those of phases 3, 5 and 6 for another
-tree's port, on the same rows).  Prints the whole run's seconds, a JSON
-line with every kernel's numbers (at GBT's shapes too), the nvidia-smi
+tree's port, on the same rows).  Prints phase 11's and the whole run's
+seconds, a JSON line with every kernel's numbers (at GBT's shapes too,
+and split_scan's launches in phase 11 (e)), the nvidia-smi
 line, and last `{"ok": true, "device": {...}}`.  Exits non-zero without
 a GPU.
 """
@@ -154,6 +185,20 @@ DIST_WORLD = 4                   # phase 10: ranks, all on this card (gloo)
 DIST_TIMEOUT = 900               # phase 10: seconds the ranks may take
 SHARD_CHECK_CALL = 3             # phase 10: the wrapper call held to plain
 EVAL_LEAVES = 511                # phase 10 (f): open leaves of the level
+BF16_FLOP_PER_S = 989e12         # H100 SXM bf16 tensor cores, dense
+LM_SMALL_P, LM_STEPS = 12, 8     # phase 11 (a): prompt length, decode steps
+LM_FULL_P = 32                   # phase 11 (b), (d): prompt length
+TIE_GAP = 1e-4                   # phase 11: a CPU top-2 gap under it is a tie
+ROUTE_TIE = 1e-5                 # phase 11 (d): router probability tie
+LM_PREFILL = (4, 2048)           # phase 11 (c), (d): timed prefill B, P
+LM_DECODE_BATCHES = (4, 64)      # phase 11 (c): timed decode batches
+LM_DECODE_STEPS, LM_MAX_SEQ = 128, 2048
+LM_PREFILL_CHUNK = 8             # phase 11: sequences a cache-filling prefill
+LM_SERVER_STEPS = 16             # phase 11 (c): BatchedServer steps
+LM_PROFILE_STEPS = 8             # phase 11 with --profile: decode steps traced
+LM_FEATURE_ROWS, LM_FEATURE_LEN = 1 << 14, 32   # phase 11 (e)
+LM_FEATURE_VOCAB = 64            # phase 11 (e): token ids drawn from [0, 64)
+LM_FEATURE_CHUNK = 1024          # phase 11 (e): sequences a forward
 
 
 def log(msg: str) -> None:
@@ -2394,6 +2439,536 @@ def phase10(args, dev, maj_train, refs):
     return out
 
 
+# ---------------------------------------------------------------------------
+# Phase 11: LM serving
+# ---------------------------------------------------------------------------
+
+def lm_models(cfg, seed: int, dev, cpu: bool = True):
+    """`cfg`'s weights drawn from `seed` on the card: (the tree, a model
+    on the card, with `cpu` the same weights as a model on the host)."""
+    import torch
+    from repro_torch.models import transformer
+    gen = torch.Generator(device=dev).manual_seed(seed)
+    params = transformer.init_params(gen, cfg)
+    card = transformer.Transformer(cfg, params, device=dev)
+    return params, card, (transformer.Transformer(cfg, params, device="cpu")
+                          if cpu else None)
+
+
+def lm_cast(params: dict, cfg) -> dict:
+    """`params` in the dtypes `cfg` gives each leaf (a bfloat16 config
+    keeps its float32 leaves): the tree `init_params` draws for `cfg`."""
+    from repro_torch.models import transformer
+
+    def cast(tree, meta):
+        return {k: cast(v, meta[k]) if isinstance(v, dict)
+                else v.to(meta[k].dtype) for k, v in tree.items()}
+    return cast(params, transformer.init_params(None, cfg))
+
+
+def lm_inputs(cfg, B: int, S: int, seed: int):
+    """Prompts (tokens, or float32 embeddings for the stub frontends) and,
+    for the latter, one fixed decode-step embedding, made with numpy."""
+    import numpy as np
+    import torch
+    rng = np.random.default_rng(seed)
+    if cfg.input_mode == "tokens":
+        return torch.from_numpy(rng.integers(
+            0, cfg.vocab_size, (B, S)).astype(np.int64)), None
+    return (torch.from_numpy(rng.normal(size=(B, S, cfg.d_model))
+                             .astype(np.float32)),
+            torch.from_numpy(rng.normal(size=(B, 1, cfg.d_model))
+                             .astype(np.float32)))
+
+
+def lm_serve(model, prompts, steps: int, step_embed=None, feed=None):
+    """`prefill_step`, then `steps` `decode_step`s on padded caches, each
+    fed `feed[s]` (tokens (B,)) when given, else this model's greedy token
+    (or the fixed embedding).  Returns (logits (B, 1+steps, V), greedy
+    tokens (B, 1+steps)), both on the CPU."""
+    import torch
+    from repro_torch.launch.serve import pad_caches
+    from repro_torch.serve import engine
+    dev = model.device
+    B, P = prompts.shape[:2]
+    lg, caches = engine.prefill_step(model, prompts.to(dev))
+    caches = pad_caches(caches, steps)
+    logits, toks = [lg.float().cpu()], [engine.greedy_sample(lg).cpu()]
+    lens = torch.full((B,), P, dtype=torch.int64, device=dev)
+    for s in range(steps):
+        if step_embed is not None:
+            x = step_embed.to(dev)
+        else:
+            x = (feed[s] if feed is not None else toks[-1])[:, None].to(dev)
+        lg, caches = engine.decode_step(model, caches, x, lens)
+        lens = lens + 1
+        logits.append(lg.float().cpu())
+        toks.append(engine.greedy_sample(lg).cpu())
+    return torch.cat(logits, dim=1), torch.stack(toks, dim=1)
+
+
+def lm_card_vs_cpu(card, cpu, prompts, steps, tol, label, step_embed=None):
+    """The CPU serves on its own greedy tokens; the card is fed the CPU's
+    tokens, so every step sees the same inputs.  Logits must agree within
+    `tol` (atol = rtol); the card's greedy token must equal the CPU's
+    except at a step whose CPU top-2 gap is under TIE_GAP (printed as a
+    tie); a repeat on the card must give the same bits.  Returns
+    (max |dlogit|, ties)."""
+    import torch
+    lg_c, tok_c = lm_serve(cpu, prompts, steps, step_embed)
+    feed = [tok_c[:, s] for s in range(steps)]
+    lg_g, tok_g = lm_serve(card, prompts, steps, step_embed, feed)
+    err = (lg_g - lg_c).abs().max().item()
+    if not torch.allclose(lg_g, lg_c, atol=tol, rtol=tol):
+        fail(f"{label}: card logits differ from the CPU's by {err:.3e} "
+             f"(tolerance {tol})")
+    top2 = torch.topk(lg_c, 2, dim=-1).values
+    gap = top2[..., 0] - top2[..., 1]
+    ties = 0
+    for b, s in (tok_g != tok_c).nonzero().tolist():
+        if gap[b, s] >= TIE_GAP:
+            fail(f"{label}: card token {int(tok_g[b, s])} != CPU token "
+                 f"{int(tok_c[b, s])} at row {b} step {s} (CPU top-2 gap "
+                 f"{float(gap[b, s]):.3e})")
+        ties += 1
+        log(f"    {label}: tie at row {b} step {s}: card {int(tok_g[b, s])},"
+            f" CPU {int(tok_c[b, s])}, CPU top-2 gap {float(gap[b, s]):.2e}")
+    again, _ = lm_serve(card, prompts, steps, step_embed, feed)
+    if not torch.equal(again, lg_g):
+        fail(f"{label}: a repeat on the card gave other logits")
+    return err, ties
+
+
+def lm_decode_from_empty(model, prompts, label):
+    """Decoding every prompt position from an empty cache must give the
+    full forward's logits (the reference's serving contract; its
+    tolerance, atol 5e-3, rtol 1e-2)."""
+    import torch
+    from repro_torch.models.transformer import init_cache
+    x = prompts.to(model.device)
+    B, S = x.shape[:2]
+    full, _, _ = model.forward(x)
+    caches = init_cache(model.cfg, B, S, device=model.device)
+    lens = torch.zeros(B, dtype=torch.int64, device=model.device)
+    outs = []
+    for t in range(S):
+        lg, caches = model.decode_step(caches, x[:, t:t + 1], lens)
+        lens = lens + 1
+        outs.append(lg)
+    if not torch.allclose(full, torch.cat(outs, 1), atol=5e-3, rtol=1e-2):
+        fail(f"{label}: decode from an empty cache differs from the full "
+             f"forward on the card")
+
+
+def lm_phase_a(args, dev) -> dict:
+    """(a): every registered architecture's reduced variant (float32)."""
+    import dataclasses as dc
+    from repro_torch.configs.base import get_arch, list_archs
+    from repro_torch.models.transformer import Transformer
+    out = {}
+    for i, arch in enumerate(list_archs()):
+        t0 = time.perf_counter()
+        cfg = get_arch(arch).reduced()
+        params, card, cpu = lm_models(cfg, args.seed + i, dev)
+        prompts, emb = lm_inputs(cfg, 2, LM_SMALL_P, args.seed + i)
+        err, ties = lm_card_vs_cpu(card, cpu, prompts, LM_STEPS, 1e-4,
+                                   f"(a) {arch}", emb)
+        undropped = (dc.replace(cfg, capacity_factor=8.0) if cfg.num_experts
+                     else cfg)
+        lm_decode_from_empty(Transformer(undropped, params, device=dev),
+                             prompts, f"(a) {arch}")
+        out[arch] = dict(max_abs_err=err, ties=ties,
+                         s=time.perf_counter() - t0)
+        log(f"  (a) {arch}: card == CPU over prefill + {LM_STEPS} decode "
+            f"steps (max |dlogit| {err:.2e}, ties {ties}), decode from "
+            f"empty == forward, repeat bit-equal; {out[arch]['s']:.2f} s")
+    return out
+
+
+def lm_counts(model) -> dict:
+    """What one token's forward needs: the bytes of the weights it reads
+    (the embedding table excluded: a token reads one row; MoE experts
+    counted as top-k of E) and the multiply-adds of its matmuls."""
+    from repro_torch.models import transformer
+    cfg = model.cfg
+    if any(mix != "attn" for mix, _ in cfg.block_pattern):
+        raise ValueError("bounds are written for attention models")
+    eb = 2 if cfg.dtype == "bfloat16" else 4
+    emb = cfg.vocab_size * cfg.d_model if cfg.input_mode == "tokens" else 0
+    head = cfg.d_model * cfg.vocab_size
+    active = transformer.active_param_count(model) - emb
+    attn_layers = cfg.num_blocks * sum(m == "attn" for m, _ in
+                                       cfg.block_pattern)
+    return dict(eb=eb, weights=active, blocks=active - head - cfg.d_model,
+                head=head, attn_layers=attn_layers,
+                kv_row=2 * cfg.num_kv_heads * cfg.hd * eb)
+
+
+def lm_prefill_bound_ms(model, B: int, P: int) -> float:
+    """The larger of 2·(block params)·B·P + the causal attention products
+    + the last position's head over 989 TFLOP/s, and the weights read
+    once + the caches written over 3.35 TB/s."""
+    cfg, c = model.cfg, lm_counts(model)
+    win = cfg.sliding_window or P
+    keys = sum(min(t + 1, win) for t in range(P))
+    flops = (2 * c["blocks"] * B * P + 2 * c["head"] * B
+             + c["attn_layers"] * 4 * B * cfg.num_heads * cfg.hd * keys)
+    nbytes = c["weights"] * c["eb"] + c["attn_layers"] * B * P * c["kv_row"]
+    return max(flops / BF16_FLOP_PER_S, nbytes / HBM_BYTES_PER_S) * 1e3
+
+
+def lm_decode_bound_ms(model, B: int, lens: list) -> float:
+    """Summed over decode steps at cache lengths `lens`: the larger of the
+    weights plus the cache rows each step attends read once over 3.35
+    TB/s, and its products over 989 TFLOP/s."""
+    cfg, c = model.cfg, lm_counts(model)
+    total = 0.0
+    for n in lens:
+        keys = min(n + 1, cfg.sliding_window or n + 1)
+        nbytes = (c["weights"] * c["eb"]
+                  + c["attn_layers"] * B * keys * c["kv_row"])
+        flops = (2 * (c["blocks"] + c["head"]) * B
+                 + c["attn_layers"] * 4 * B * cfg.num_heads * cfg.hd * keys)
+        total += max(nbytes / HBM_BYTES_PER_S, flops / BF16_FLOP_PER_S)
+    return total * 1e3
+
+
+def lm_prefill_timing(model, B: int, P: int, seed: int, label: str,
+                      profile: bool = False) -> dict:
+    """`prefill_step` of B random prompts of P tokens: median of 3 after a
+    warm-up (host clock, each run ends in a device sync); with `profile`
+    a fourth run under the profiler."""
+    import torch
+    from repro_torch.serve import engine
+    prompts, _ = lm_inputs(model.cfg, B, P, seed)
+    prompts = prompts.to(model.device)
+    engine.prefill_step(model, prompts)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    times = []
+    for _ in range(3):
+        t0 = time.perf_counter()
+        lg, caches = engine.prefill_step(model, prompts)
+        torch.cuda.synchronize()
+        times.append((time.perf_counter() - t0) * 1e3)
+        del lg, caches
+    ms = sorted(times)[1]
+    if profile:
+        profiled(lambda: engine.prefill_step(model, prompts), ms / 1e3)
+    r = dict(B=B, P=P, ms=ms, tokens_per_s=B * P / ms * 1e3,
+             bound_ms=lm_prefill_bound_ms(model, B, P),
+             peak_gib=torch.cuda.max_memory_allocated() / 2**30)
+    log(f"  {label} prefill B={B} x P={P}: {ms:.2f} ms "
+        f"({r['tokens_per_s']:.0f} tokens/s), bound {r['bound_ms']:.3f} ms, "
+        f"peak {r['peak_gib']:.2f} GiB")
+    return r
+
+
+def lm_decode_timing(model, B: int, seed: int, label: str,
+                     profile: bool = False) -> dict:
+    """LM_DECODE_STEPS greedy `decode_step`s at batch B ending at
+    LM_MAX_SEQ: the caches are filled by a prefill (LM_PREFILL_CHUNK
+    sequences at a time); each timed step ends in a device sync.
+    Tokens/s, p50/p99 ms a step, peak memory, bound; with `profile`,
+    LM_PROFILE_STEPS more steps (at the full cache, which they no longer
+    write) under the profiler."""
+    import torch
+    from repro_torch.models.transformer import init_cache
+    from repro_torch.serve import engine
+    dev, steps = model.device, LM_DECODE_STEPS
+    P0 = LM_MAX_SEQ - steps
+    prompts, _ = lm_inputs(model.cfg, B, P0, seed)
+    caches = init_cache(model.cfg, B, LM_MAX_SEQ, device=dev)
+    tok = torch.empty(B, dtype=torch.int64, device=dev)
+    for b0 in range(0, B, LM_PREFILL_CHUNK):
+        b1 = min(B, b0 + LM_PREFILL_CHUNK)
+        lg, part = engine.prefill_step(model, prompts[b0:b1].to(dev))
+        for pos, c in part.items():
+            for name, t in c.items():
+                caches[pos][name][:, b0:b1, :P0] = t
+        tok[b0:b1] = engine.greedy_sample(lg)
+        del lg, part
+    lens = torch.full((B,), P0, dtype=torch.int64, device=dev)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    ms = []
+    for _ in range(steps):
+        t0 = time.perf_counter()
+        lg, caches = engine.decode_step(model, caches, tok[:, None], lens)
+        tok, lens = engine.greedy_sample(lg), lens + 1
+        torch.cuda.synchronize()
+        ms.append((time.perf_counter() - t0) * 1e3)
+    total = sum(ms)
+    if profile:
+        def more():
+            nonlocal tok, caches
+            for _ in range(LM_PROFILE_STEPS):
+                lg, caches = engine.decode_step(model, caches, tok[:, None],
+                                                lens)
+                tok = engine.greedy_sample(lg)
+        profiled(more, sum(ms[-LM_PROFILE_STEPS:]) / 1e3)
+    ms.sort()
+    r = dict(B=B, steps=steps, start_len=P0, ms_total=total,
+             tokens_per_s=B * steps / total * 1e3, p50_ms=percentile(ms, 0.5),
+             p99_ms=percentile(ms, 0.99),
+             bound_ms=lm_decode_bound_ms(model, B,
+                                         list(range(P0, P0 + steps))),
+             peak_gib=torch.cuda.max_memory_allocated() / 2**30)
+    log(f"  {label} decode B={B}, {steps} steps from cache length "
+        f"{P0} (max_seq {LM_MAX_SEQ}): {total:.1f} ms "
+        f"({r['tokens_per_s']:.0f} tokens/s), p50 {r['p50_ms']:.2f} / p99 "
+        f"{r['p99_ms']:.2f} ms a step, bound {r['bound_ms']:.1f} ms "
+        f"({r['bound_ms'] / steps:.3f} a step), peak {r['peak_gib']:.2f} GiB")
+    return r
+
+
+def lm_batched_server(model, seed: int) -> dict:
+    """Three requests through `BatchedServer` (4 slots) for LM_SERVER_STEPS
+    steps, twice: the same tokens both times; p50/p99 ms a step."""
+    import numpy as np
+    import torch
+    from repro_torch.serve.engine import BatchedServer
+    rng = np.random.default_rng(seed)
+    prompts = [rng.integers(0, model.cfg.vocab_size, n).tolist()
+               for n in (8, 12, 16)]
+    runs = []
+    for _ in range(2):
+        srv = BatchedServer(model, max_seq=64, batch=4)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        slots = [srv.add_request(p) for p in prompts]
+        torch.cuda.synchronize()
+        add_ms = (time.perf_counter() - t0) * 1e3
+        ms = []
+        for _ in range(LM_SERVER_STEPS):
+            t0 = time.perf_counter()
+            srv.step()                     # ends in a host copy of tokens
+            ms.append((time.perf_counter() - t0) * 1e3)
+        runs.append(([srv.finish(s) for s in slots], add_ms, sorted(ms)))
+        del srv
+    if runs[0][0] != runs[1][0]:
+        fail("(c) BatchedServer: a second identical session gave other "
+             "tokens")
+    streams, add_ms, ms = runs[1]
+    r = dict(requests=3, steps=LM_SERVER_STEPS, prefill_ms=add_ms,
+             p50_ms=percentile(ms, 0.5), p99_ms=percentile(ms, 0.99),
+             tokens_per_s=3 * LM_SERVER_STEPS / sum(ms) * 1e3)
+    log(f"  (c) BatchedServer, 3 requests (prompts 8, 12, 16 tokens, "
+        f"prefilled through {sum(map(len, prompts))} batch decode steps in "
+        f"{add_ms:.1f} ms), {LM_SERVER_STEPS} steps: the same tokens twice "
+        f"(slot 0 {streams[0][:6]}...); p50 {r['p50_ms']:.2f} / p99 "
+        f"{r['p99_ms']:.2f} ms a step, {r['tokens_per_s']:.0f} tokens/s")
+    return r
+
+
+def lm_route_recorder(calls: list):
+    """Wrap `moe.route` so each call's (probs, expert ids) is appended to
+    `calls` (on the CPU); returns the function to restore."""
+    from repro_torch.models import moe
+    orig = moe.route
+
+    def route(p, xt, cfg):
+        out = orig(p, xt, cfg)
+        calls.append((out[0].cpu(), out[2].cpu()))
+        return out
+    moe.route = route
+    return orig
+
+
+def lm_same_experts(cpu_calls, card_calls, K: int) -> int:
+    """Every router call's expert set per token equal on the card and the
+    CPU, except where the CPU's k-th and (k+1)-th probabilities are
+    within ROUTE_TIE (printed); returns the number of such ties."""
+    import torch
+    if len(cpu_calls) != len(card_calls):
+        fail(f"(d) {len(card_calls)} router calls on the card, "
+             f"{len(cpu_calls)} on the CPU")
+    ties = 0
+    for c, ((pc, ec), (_, eg)) in enumerate(zip(cpu_calls, card_calls)):
+        diff = (ec.sort(-1).values != eg.sort(-1).values).any(-1)
+        for t in diff.nonzero().flatten().tolist():
+            top = torch.topk(pc[t], K + 1).values
+            if top[K - 1] - top[K] >= ROUTE_TIE:
+                fail(f"(d) router call {c}, token {t}: card experts "
+                     f"{sorted(eg[t].tolist())} != CPU "
+                     f"{sorted(ec[t].tolist())}")
+            ties += 1
+            log(f"    (d) router tie at call {c}, token {t}")
+    return ties
+
+
+def lm_split_scan_levels(args, ds) -> dict:
+    """split_scan on the inputs that every level of one tree batch of (e)'s
+    fit gives it (`capture_exact_levels`): bit-equal to its plain version
+    at each level (binary gini), and timed at the deepest level beside its
+    plain version and its bound."""
+    import torch
+    from repro_torch.kernels import split_scan as ss
+    levels = capture_exact_levels(args, ds)
+    for depth, lv in enumerate(levels):
+        ins, kw = lv["ss"]["ins"], lv["ss"]["kw"]
+        gk, tk = ss.split_scan(*ins, **kw)
+        gp, tp = ss.split_scan_plain(*ins, **kw)
+        if not (torch.equal(gk, gp) and torch.equal(tk, tp)):
+            fail(f"(e) split_scan on level {depth} of the LM-feature fit: "
+                 f"not bit-equal to its plain version")
+    ins, kw = levels[-1]["ss"]["ins"], levels[-1]["ss"]["kw"]
+    leaf, w, totals = ins[2], ins[3], ins[6]
+    (T, n), m = leaf.shape, ins[0].shape[0]
+    L1, S = totals.shape[-2], totals.shape[-1]
+    act = ((leaf > 0) & (w > 0)).sum().item() * m
+    b_ms, b_by = bound_ms(ss.bound_bytes(T, m, n, L1, S), act * 40)
+    r = dict(levels=len(levels), T=T, m=m, n=n, L1=L1, max_abs_err=0.0,
+             ms=cuda_ms(lambda: ss.split_scan(*ins, **kw)),
+             plain_ms=cuda_ms(lambda: ss.split_scan_plain(*ins, **kw),
+                              runs=1),
+             bound_ms=b_ms, bound_by=b_by)
+    log(f"  (e) split_scan bit-equal to its plain version on all "
+        f"{len(levels)} levels of one tree batch; deepest "
+        f"{json.dumps(r)}")
+    return r
+
+
+def phase11(args, dev) -> dict:
+    """LM serving on the card; see the module docstring."""
+    import dataclasses as dc
+    import numpy as np
+    import torch
+    from repro_torch.configs.base import get_arch
+    from repro_torch.core.dataset import from_numpy
+    from repro_torch.core.tree import TreeParams
+    from repro_torch.kernels import cat_hist, feat_hist, split_scan
+    from repro_torch.models import moe, transformer
+    t_phase = time.perf_counter()
+    out = {"a": lm_phase_a(args, dev)}
+
+    # (b) qwen3-0.6b at full width, float32, card against CPU
+    t0 = time.perf_counter()
+    cfg = dc.replace(get_arch("qwen3-0.6b"), dtype="float32")
+    params, card, cpu = lm_models(cfg, args.seed, dev)
+    n_params = transformer.param_count(card)
+    prompts, _ = lm_inputs(cfg, 2, LM_FULL_P, args.seed)
+    err, ties = lm_card_vs_cpu(card, cpu, prompts, LM_STEPS, 1e-3,
+                               "(b) qwen3-0.6b")
+    out["b"] = dict(params=n_params, max_abs_err=err, ties=ties,
+                    s=time.perf_counter() - t0)
+    log(f"  (b) qwen3-0.6b, {cfg.num_layers} layers, {n_params} params "
+        f"(float32, {n_params * 4 / 1e9:.2f} GB): card == CPU over "
+        f"prefill B=2 x P={LM_FULL_P} + {LM_STEPS} decode steps (max "
+        f"|dlogit| {err:.2e}, ties {ties}), repeat bit-equal; "
+        f"{out['b']['s']:.1f} s")
+    del card, cpu
+
+    # (c) the same weights in the config's bfloat16, timed
+    cfg = get_arch("qwen3-0.6b")
+    qwen = transformer.Transformer(cfg, lm_cast(params, cfg), device=dev)
+    del params
+    torch.cuda.empty_cache()
+    smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
+                          "--format=csv,noheader"], capture_output=True,
+                         text=True).stdout.strip().splitlines()[0]
+    log(f"  (c) qwen3-0.6b bfloat16 on {smi}")
+    out["c"] = dict(
+        prefill=lm_prefill_timing(qwen, *LM_PREFILL, args.seed, "(c)",
+                                  args.profile),
+        decode=[lm_decode_timing(qwen, b, args.seed, "(c)", args.profile)
+                for b in LM_DECODE_BATCHES],
+        server=lm_batched_server(qwen, args.seed), card=smi)
+    # the serving script as `python -m repro_torch.launch.serve` runs it:
+    # its defaults, its own weights drawn from the seed on the card
+    from repro_torch.launch import serve
+    r = serve.run(cfg, seed=args.seed, device=dev)
+    toks = r["tokens"]
+    if (tuple(toks.shape) != (4, 16) or int(toks.min()) < 0
+            or int(toks.max()) >= cfg.vocab_size):
+        fail(f"(c) launch.serve.run gave tokens of shape "
+             f"{tuple(toks.shape)} in [{int(toks.min())}, "
+             f"{int(toks.max())}]")
+    steps = sorted(r["step_ms"])
+    out["c"]["launch_serve"] = dict(
+        prefill_s=r["prefill_s"], p50_ms=percentile(steps, 0.5),
+        tokens_per_s=toks.shape[0] * len(steps) / r["decode_s"])
+    log(f"  (c) launch.serve.run (B=4, P=16, G=16, its own weights): "
+        f"prefill {r['prefill_s'] * 1e3:.1f} ms, decode p50 "
+        f"{out['c']['launch_serve']['p50_ms']:.2f} ms a step; tokens "
+        f"{toks[0][:8].tolist()}...")
+
+    # (d) olmoe-1b-7b at full width, cut to 2 layers
+    t0 = time.perf_counter()
+    cfg = dc.replace(get_arch("olmoe-1b-7b"), num_layers=2, dtype="float32")
+    params, card, cpu = lm_models(cfg, args.seed, dev)
+    prompts, _ = lm_inputs(cfg, 2, LM_FULL_P, args.seed)
+    calls = []                      # the CPU's, the card's, its repeat's
+    orig = lm_route_recorder(calls)
+    try:
+        err, ties = lm_card_vs_cpu(card, cpu, prompts, LM_STEPS, 1e-3,
+                                   "(d) olmoe-1b-7b")
+    finally:
+        moe.route = orig
+    n_calls = len(calls) // 3
+    route_ties = lm_same_experts(calls[:n_calls], calls[n_calls:2 * n_calls],
+                                 cfg.num_experts_per_tok)
+    del card, cpu
+    bcfg = dc.replace(cfg, dtype="bfloat16")
+    olmoe = transformer.Transformer(bcfg, lm_cast(params, bcfg), device=dev)
+    del params
+    torch.cuda.empty_cache()
+    out["d"] = dict(
+        max_abs_err=err, ties=ties, route_ties=route_ties,
+        router_calls=n_calls,
+        prefill=lm_prefill_timing(olmoe, *LM_PREFILL, args.seed, "(d)",
+                                  args.profile),
+        decode=lm_decode_timing(olmoe, LM_DECODE_BATCHES[0], args.seed,
+                                "(d)", args.profile))
+    log(f"  (d) olmoe-1b-7b (d_model {cfg.d_model}, {cfg.num_experts} experts "
+        f"top-{cfg.num_experts_per_tok}, {cfg.num_layers} layers): "
+        f"card == CPU in float32 (max |dlogit| {err:.2e}, ties {ties}), "
+        f"expert ids equal in {n_calls} router calls (ties "
+        f"{route_ties}), repeat bit-equal; {time.perf_counter() - t0:.1f} s")
+    del olmoe
+    torch.cuda.empty_cache()
+
+    # (e) pooled qwen3 features into a forest, as examples/rf_on_embeddings
+    t0 = time.perf_counter()
+    rng = np.random.default_rng(args.seed)
+    n, S = LM_FEATURE_ROWS, LM_FEATURE_LEN
+    toks = rng.integers(0, LM_FEATURE_VOCAB, (n, S)).astype(np.int64)
+    pos7 = np.where((toks == 7).any(1), (toks == 7).argmax(1), S + 1)
+    pos9 = np.where((toks == 9).any(1), (toks == 9).argmax(1), S + 1)
+    y = (pos7 < pos9).astype(np.int32)
+    feats = []
+    for i in range(0, n, LM_FEATURE_CHUNK):
+        x, _, _ = qwen.forward_hidden(
+            torch.from_numpy(toks[i:i + LM_FEATURE_CHUNK]).to(dev))
+        feats.append(x.float().mean(dim=1))
+    feats = torch.cat(feats).cpu().numpy()
+    embed_s = time.perf_counter() - t0
+    if not np.isfinite(feats).all() or feats.shape != (n, qwen.cfg.d_model):
+        fail(f"(e) features: shape {feats.shape} or non-finite values")
+    del qwen
+    torch.cuda.empty_cache()
+    cut = 3 * n // 4
+    train = from_numpy(feats[:cut], None, y[:cut])
+    test = from_numpy(feats[cut:], None, y[cut:])
+    rf, fit = run_fit(args, train, TreeParams(max_depth=10,
+                                              backend="kernel"),
+                      {"split_scan": split_scan}, "(e) LM-feature forest",
+                      idle={"cat_hist": cat_hist, "feat_hist": feat_hist})
+    auc = rf.auc(test)
+    out["e"] = dict(rows=n, seq=S, embed_s=embed_s, auc=auc,
+                    positives=float(y.mean()),
+                    split_scan=lm_split_scan_levels(args, train), **fit)
+    log(f"  (e) {n} sequences x {S} tokens embedded in {embed_s:.2f} s "
+        f"(bfloat16 forward_hidden, mean-pooled to float32, "
+        f"{feats.shape[1]} features, {y.mean():.3f} positive); forest on "
+        f"{cut} rows: split_scan launched {fit['launches']['split_scan']} "
+        f"times, repeat grew identical trees, held-out AUC {auc:.4f}")
+    out["phase_s"] = time.perf_counter() - t_phase
+    log(f"  phase 11 total {out['phase_s']:.1f} s")
+    log(f"  phase 11 {json.dumps(out)}")
+    return out
+
+
 def busy_within(merged, lo, hi) -> float:
     """Device-busy microseconds inside [lo, hi], from sorted disjoint
     busy intervals."""
@@ -2609,6 +3184,8 @@ def main() -> int:
                          "against and phase 10")
     ap.add_argument("--dist-worker", nargs=3, default=None,
                     help=argparse.SUPPRESS)
+    ap.add_argument("--lm", action="store_true",
+                    help="build, then only phase 11 (LM serving)")
     args = ap.parse_args()
 
     src = (args.src or ROOT / "src").resolve()
@@ -2647,6 +3224,12 @@ def main() -> int:
                 log(f"    {name}: {line.strip()}")
         for fn, ops in sass_atomics(_build.library_path(name)).items():
             log(f"    {name} SASS atomics {fn}: {json.dumps(ops)}")
+
+    if args.lm:
+        log("phase 11: LM serving on the card")
+        phase11(args, dev)
+        log(f"  total {time.perf_counter() - t_start:.1f} s")
+        return 0
 
     log("phase 2: kernels against their plain versions")
     n_all = (1 << args.train_log2n) + TEST_ROWS
@@ -2767,6 +3350,9 @@ def main() -> int:
     del maj_train, maj_test
     sharded = {"cat_hist": "a", "feat_hist": "b"}
 
+    log("phase 11: LM serving on the card")
+    lm_info = phase11(args, dev)
+
     kernels = []
     sources = {"split_scan": ("src/repro_torch/csrc/split_scan.cu",
                               "src/repro/kernels/split_scan.py:164",
@@ -2791,8 +3377,12 @@ def main() -> int:
                  for label, info in gbt_info["fits"].items()
                  if name in info["kernels"]},
             sharded=({sharded[name]: [x[name] for x in dist_info["fits"][
-                sharded[name]]["launches"]]} if name in sharded else {})))
-    log(f"  total {time.perf_counter() - t_start:.1f} s")
+                sharded[name]]["launches"]]} if name in sharded else {}),
+            lm=dict(launches=lm_info["e"]["launches"].get(name, 0),
+                    **(lm_info["e"]["split_scan"] if name == "split_scan"
+                       else {}))))
+    log(f"  phase 11 total {lm_info['phase_s']:.1f} s; whole script total "
+        f"{time.perf_counter() - t_start:.1f} s")
     print(json.dumps({"kernels": kernels}), flush=True)
     print(smi, flush=True)
     print(json.dumps({"ok": True, "device": {

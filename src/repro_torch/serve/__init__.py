@@ -1,1 +1,2 @@
-"""Serving: the forest inference server (`engine.ForestServer`)."""
+"""Serving: the forest inference server (`engine.ForestServer`) and the LM
+server (`engine.prefill_step`, `decode_step`, `BatchedServer`)."""

@@ -1,5 +1,6 @@
-"""Serving: the forest inference server, ported from the forest half of
-`repro.serve.engine`.
+"""Serving, ported from `repro.serve.engine`: the forest inference server
+(`ForestServer`) and the LM half (`prefill_step`, `decode_step`,
+`greedy_sample`, `BatchedServer`).
 
 `ForestServer` is a long-lived process's view of ONE versioned
 `PackedForest` .npz (`forest.PackedForest.save`, written by either
@@ -8,9 +9,14 @@ warm size there, so the first real request pays no CUDA context, module
 load or allocator growth; `predict` validates each request on the host
 and answers it with one descent of every tree (`forest._forest_predict`).
 
-The reference module's LM half (`prefill_step`, `decode_step`,
-`greedy_sample`, `BatchedServer`) belongs to the LLM scaffold, which is
-ported in a later slice.
+The LM functions take a `models.transformer.Transformer` (its device is
+the model's).  `BatchedServer` mirrors the reference's server step for
+step, including two of its behaviours that a production server would not
+share: `add_request` prefills through decode steps over the WHOLE batch
+(token 0 in every other slot, which leaves attention caches as they were
+but advances the other active slots' RWKV and Mamba states), and the
+first `step` after a prefill feeds token 0 to a slot that has no output
+yet.  Its token streams are the reference's.
 """
 from __future__ import annotations
 
@@ -21,6 +27,7 @@ import numpy as np
 import torch
 
 from repro_torch.core.forest import PackedForest
+from repro_torch.models import transformer
 
 
 class InvalidRequest(ValueError):
@@ -145,3 +152,82 @@ class ForestServer:
         cat = self._validate(num, cat)
         return self.packed.predict_proba(torch.from_numpy(num),
                                          torch.from_numpy(cat))
+
+
+# ---------------------------------------------------------------------------
+# LM serving
+# ---------------------------------------------------------------------------
+
+def prefill_step(model, inputs):
+    """Full-sequence forward; returns (last-position logits (B,1,V), layer
+    caches).  Only the final position is projected: the sampler reads one
+    position, and the (B, S, vocab) tensor would be pure waste."""
+    x, _, caches = model.forward_hidden(inputs, collect_cache=True)
+    return model.project_logits(x[:, -1:]), caches
+
+
+def decode_step(model, caches, inputs, cache_len):
+    """One new token against a max_seq cache (updated in place)."""
+    return model.decode_step(caches, inputs, cache_len)
+
+
+def greedy_sample(logits):
+    return torch.argmax(logits[:, -1], dim=-1)
+
+
+@dataclasses.dataclass
+class BatchedServer:
+    """Minimal batched continuous-decode server.
+
+    Holds a fixed-size batch of slots; each slot has a cache position.  New
+    requests prefill into a free slot; every `step()` decodes one token for
+    all active slots.  See the module docstring for the two behaviours it
+    keeps from the reference.
+    """
+    model: transformer.Transformer
+    max_seq: int
+    batch: int
+
+    def __post_init__(self):
+        dev = self.model.device
+        self.caches = transformer.init_cache(self.model.cfg, self.batch,
+                                             self.max_seq, dev)
+        self.lens = torch.zeros(self.batch, dtype=torch.int64, device=dev)
+        self.active = [False] * self.batch
+        self.outputs: list[list[int]] = [[] for _ in range(self.batch)]
+
+    def add_request(self, prompt_tokens) -> int:
+        slot = self.active.index(False)
+        # sequential prefill through decode steps over the whole batch
+        for t in [int(t) for t in prompt_tokens]:
+            tok = torch.zeros(self.batch, 1, dtype=torch.int64,
+                              device=self.model.device)
+            tok[slot, 0] = t
+            _, self.caches = self.model.decode_step(self.caches, tok,
+                                                    self.lens)
+            self.lens[slot] += 1
+        self.active[slot] = True
+        return slot
+
+    def step(self) -> dict[int, int]:
+        """Decode one token for every active slot; returns {slot: token}."""
+        last = torch.tensor(
+            [self.outputs[i][-1] if self.outputs[i] else 0
+             for i in range(self.batch)], dtype=torch.int64,
+            device=self.model.device)[:, None]
+        logits, self.caches = self.model.decode_step(self.caches, last,
+                                                     self.lens)
+        nxt = torch.argmax(logits[:, 0], dim=-1).tolist()
+        out = {}
+        for i in range(self.batch):
+            if self.active[i]:
+                self.outputs[i].append(nxt[i])
+                self.lens[i] += 1
+                out[i] = nxt[i]
+        return out
+
+    def finish(self, slot: int) -> list[int]:
+        self.active[slot] = False
+        toks, self.outputs[slot] = self.outputs[slot], []
+        self.lens[slot] = 0
+        return toks

@@ -50,6 +50,23 @@ def reference() -> types.SimpleNamespace:
         split_scan=split_scan, serve_engine=serve_engine)
 
 
+def reference_lm() -> types.SimpleNamespace:
+    """The reference's LM scaffold: configs, models, the LM server, the
+    checkpoint io and the serving entry point.  None of them imports
+    `repro.core`, so no shim is needed."""
+    import jax
+    import jax.numpy as jnp
+    from repro.checkpoint import io
+    from repro.configs import base as configs
+    from repro.launch import serve as launch_serve
+    from repro.models import layers, mamba, moe, rwkv, transformer
+    from repro.serve import engine
+    return types.SimpleNamespace(
+        jax=jax, jnp=jnp, io=io, configs=configs, launch_serve=launch_serve,
+        layers=layers, mamba=mamba, moe=moe, rwkv=rwkv,
+        transformer=transformer, engine=engine)
+
+
 def _run(code: str, env_extra=None) -> subprocess.CompletedProcess:
     env = dict(os.environ, PYTHONPATH=str(SRC))
     env.update(env_extra or {})
@@ -71,9 +88,19 @@ def test_port_modules_never_import_jax_or_reference():
                      or m == "repro" or m.startswith("repro."))
         assert not bad, bad
         assert len(names) >= 15, names
-        launch = {"repro_torch.launch.mesh",
-                  "repro_torch.launch.multihost_smoke"}
-        assert launch <= set(names), names
+        expected = {"repro_torch.launch.mesh",
+                    "repro_torch.launch.multihost_smoke",
+                    "repro_torch.launch.serve",
+                    "repro_torch.configs.base",
+                    "repro_torch.configs.qwen3_0_6b",
+                    "repro_torch.models.transformer",
+                    "repro_torch.models.moe",
+                    "repro_torch.models.rwkv",
+                    "repro_torch.models.mamba",
+                    "repro_torch.checkpoint.io"}
+        assert expected <= set(names), sorted(expected - set(names))
+        from repro_torch.configs.base import list_archs
+        assert len(list_archs()) == 11, list_archs()
         print(len(names))
     """)
     assert r.returncode == 0, r.stderr
