@@ -144,10 +144,36 @@ Phases, each fatal on failure:
      deepest; the held-out AUC is printed.  `--lm` runs
      phases 0, 1 and 11 alone (with `--profile`: each timed prefill and
      8 more decode steps under the profiler).
+ 12. LM training (`repro_torch.train.step`, AdamW, `launch.train`), no
+     kernel on its path (the three counters must stay 0): (a) every
+     registered architecture's reduced variant (float32), one train step
+     at lr 1e-3 on the card from the CPU's state and batch (B = 2, S =
+     80): metrics within rtol 1e-4; every parameter's update p_new −
+     p_old within the gap the two sides' moments allow
+     (`lm_train_update_tolerance`: ~1e-6 of lr where they agree), so a
+     missing, flipped or mis-scaled update fails; moments within 1e-4 of
+     each leaf's scale; a repeat on the card bit-equal; a census of
+     torch's deterministic-algorithm alerts; (b) the ~100M config of
+     `examples/train_lm.py --hundred-m` (12 x 768, vocab 32,768,
+     float32): one step card == CPU (B = 1, S = 32; moments within 1e-3
+     of scale), then `launch.train.train_loop` 50 steps at B = 16 x S =
+     512, lr 1e-3, whose mean ce over the last 10 steps must be below
+     the first 10's; (e) train-state checkpoints ((b)'s state
+     and a bfloat16 one) written and restored on the card bit for bit;
+     (c) qwen3-0.6b at full width: one float32 step card == CPU as (b),
+     then 10 bfloat16 steps at B = 4 x S = 2048, remat full; (f) two
+     runs of 3 of those steps bit-equal; (d) olmoe-1b-7b at full width
+     cut to 2 layers: one float32 step card == CPU with expert ids
+     equal in every router call and a repeat bit-equal, then 4 bfloat16
+     steps at B = 4 x S = 2048.  (b)-(d) print step p50/p99 ms,
+     tokens/s, the bound (full remat: 8·(block and head params)·tokens +
+     4x the causal attention products over the dtype's peak) and peak
+     memory.  `--lm-train` runs phases 0, 1 and 12 alone (with
+     `--profile`: one more step of (c) and (d) under the profiler).
 Every fit of phases 3, 5, 6 and 8 prints the sha256 of its packed trees
 (`--forests --src DIR` prints those of phases 3, 5 and 6 for another
-tree's port, on the same rows).  Prints phase 11's and the whole run's
-seconds, a JSON line with every kernel's numbers (at GBT's shapes too,
+tree's port, on the same rows).  Prints phase 11's, 12's and the whole
+run's seconds, a JSON line with every kernel's numbers (at GBT's shapes too,
 and split_scan's launches in phase 11 (e)), the nvidia-smi
 line, and last `{"ok": true, "device": {...}}`.  Exits non-zero without
 a GPU.
@@ -199,6 +225,14 @@ LM_PROFILE_STEPS = 8             # phase 11 with --profile: decode steps traced
 LM_FEATURE_ROWS, LM_FEATURE_LEN = 1 << 14, 32   # phase 11 (e)
 LM_FEATURE_VOCAB = 64            # phase 11 (e): token ids drawn from [0, 64)
 LM_FEATURE_CHUNK = 1024          # phase 11 (e): sequences a forward
+LM_TRAIN_SMALL = (2, 80)         # phase 12 (a), (e): B, S of the reduced steps
+LM_TRAIN_CHECK = (1, 32)         # phase 12 (b)-(d): card == CPU step's B, S
+LM_TRAIN_100M = (16, 512)        # phase 12 (b): train_lm.py --hundred-m
+LM_TRAIN_100M_STEPS = 50         # phase 12 (b)
+LM_TRAIN_FULL = (4, 2048)        # phase 12 (c), (d), (f): timed B, S
+LM_TRAIN_FULL_STEPS = 10         # phase 12 (c): steps (the first a warm-up)
+LM_TRAIN_MOE_STEPS = 4           # phase 12 (d): steps (the first a warm-up)
+LM_TRAIN_REPEAT_STEPS = 3        # phase 12 (f): steps of each of two runs
 
 
 def log(msg: str) -> None:
@@ -2769,7 +2803,7 @@ def lm_route_recorder(calls: list):
 
     def route(p, xt, cfg):
         out = orig(p, xt, cfg)
-        calls.append((out[0].cpu(), out[2].cpu()))
+        calls.append((out[0].detach().cpu(), out[2].cpu()))
         return out
     moe.route = route
     return orig
@@ -2966,6 +3000,510 @@ def phase11(args, dev) -> dict:
     out["phase_s"] = time.perf_counter() - t_phase
     log(f"  phase 11 total {out['phase_s']:.1f} s")
     log(f"  phase 11 {json.dumps(out)}")
+    return out
+
+
+# ---------------------------------------------------------------------------
+# Phase 12: LM training on the card
+# ---------------------------------------------------------------------------
+
+def lm_train_clone(state, tcfg, device):
+    """A copy of a train state on `device` (weights, moments, step)."""
+    from repro_torch.models import transformer
+    from repro_torch.optim import adamw
+    from repro_torch.train import step as tstep
+    copy = lambda t: t.detach().to(device, copy=True)
+    model = state["model"]
+    clone = transformer.Transformer(
+        model.cfg, adamw.map_tree(copy, model.params.tree()), device=device)
+    opt = {"mu": adamw.map_tree(copy, state["opt"]["mu"]),
+           "nu": adamw.map_tree(copy, state["opt"]["nu"]),
+           "step": copy(state["opt"]["step"])}
+    return tstep.train_state(clone, tcfg, opt)
+
+
+def lm_train_init(cfg, tcfg, seed: int, dev):
+    """`cfg`'s weights drawn from `seed` on the card and zero moments: the
+    train state on the card and its copy on the host."""
+    from repro_torch.train import step as tstep
+    card = tstep.init_train_state(seed, cfg, tcfg, device=dev)
+    return card, lm_train_clone(card, tcfg, "cpu")
+
+
+def lm_train_batch(cfg, B: int, S: int, seed: int) -> dict:
+    """One batch on the CPU: the `TokenStream` (token models), or float32
+    embeddings and token labels drawn with numpy (the stub frontends)."""
+    import numpy as np
+    import torch
+    from repro_torch.data.synthetic import TokenStream
+    from repro_torch.launch.train import to_batch
+    if cfg.input_mode == "tokens":
+        return to_batch(next(TokenStream(cfg.vocab_size, S, B, seed)), "cpu")
+    rng = np.random.default_rng(seed)
+    return {"inputs": torch.from_numpy(
+                rng.normal(size=(B, S, cfg.d_model)).astype(np.float32)),
+            "labels": torch.from_numpy(
+                rng.integers(0, cfg.vocab_size, (B, S)).astype(np.int64))}
+
+
+def lm_train_step(step_fn, state, batch, dev):
+    """One step on `dev` ending in a sync; returns (state, metrics as
+    floats, host ms)."""
+    import torch
+    batch = {k: v.to(dev) for k, v in batch.items()}
+    t0 = time.perf_counter()
+    state, m = step_fn(state, batch)
+    m = {k: float(v) for k, v in m.items()}
+    if dev.type == "cuda":
+        torch.cuda.synchronize(dev)
+    return state, m, (time.perf_counter() - t0) * 1e3
+
+
+LM_TRAIN_CHECK_OPT = dict(lr=1e-3, warmup_steps=1)   # card == CPU steps
+
+
+def lm_train_update_tolerance(ocfg, t: int, lr: float, want, got, p_new):
+    """How far one side's step-`t` AdamW update of a leaf may lie from
+    the other's, element by element, from the same parameters.  `want`,
+    `got`: each side's (mu, nu) after the step, float64 on one device.
+    With r = m̂/(√v̂ + eps) the update is lr·(r + wd·p_old), and the gap
+    is bounded exactly by lr·(|m̂ − m̂'|/(√v̂' + eps)
+    + |m̂|·|1/(√v̂ + eps) − 1/(√v̂' + eps)|) from the two sides' own
+    moments, plus float32 rounding (1e-6 of the update and one ulp of
+    the parameter on each side).  ~1e-6 of lr where the moments agree;
+    it opens up only where a gradient element lies within the two sides'
+    rounding of zero, so that the direction of its step is noise."""
+    import torch
+    c1, c2 = 1 - ocfg.b1 ** t, 1 - ocfg.b2 ** t
+    mw, mg = want[0] / c1, got[0] / c1
+    aw = torch.sqrt(want[1] / c2) + ocfg.eps
+    ag = torch.sqrt(got[1] / c2) + ocfg.eps
+    gap = (mw - mg).abs() / ag + mw.abs() * (1 / aw - 1 / ag).abs()
+    return (lr * (gap + 1e-6 * (1 + (mw / aw).abs()))
+            + 2 * torch.finfo(p_new.dtype).eps * p_new.double().abs())
+
+
+def lm_train_card_vs_cpu(before, card, cpu, m_card, m_cpu, moment_tol,
+                         tcfg, label):
+    """After one step on the card and on the CPU from the same state
+    (`before`: its parameters by flat key, on the card): metrics within
+    rtol 1e-4; each parameter element's update p_new − p_old within
+    `lm_train_update_tolerance` of the CPU's (the elements whose
+    tolerance passes lr/2, their step's direction unpinned, are
+    counted); each moment leaf within rtol 1e-4 and atol `moment_tol` of
+    its largest magnitude.  Compared on the card, one leaf at a time.
+    Returns the worst errors seen: metrics relative, the largest update
+    gap over its tolerance (at most 1), moments relative to scale; the
+    share of parameter elements whose tolerance is below 1e-3·lr, and
+    the unpinned count."""
+    import torch
+    from repro_torch.checkpoint import io
+    worst = {"metrics": 0.0, "update": 0.0, "moments": 0.0, "tight": 0,
+             "unpinned": 0}
+    n_params = 0
+    for k, w in m_cpu.items():
+        err = abs(m_card[k] - w)
+        worst["metrics"] = max(worst["metrics"], err / max(abs(w), 1e-30))
+        if err > 1e-4 * abs(w) + 1e-7:
+            fail(f"{label}: {k} {m_card[k]!r} on the card, {w!r} on the CPU")
+    lr, t = m_cpu["lr"], int(cpu["opt"]["step"])
+    a, b = io.flatten_state(card), io.flatten_state(cpu)
+    dev = a["opt/step"].device
+    for key, want in b.items():
+        got = a[key]
+        if got.dtype != want.dtype or got.shape != want.shape:
+            fail(f"{label}: {key} {got.dtype} {tuple(got.shape)} on the "
+                 f"card, {want.dtype} {tuple(want.shape)} on the CPU")
+        if key == "opt/step":
+            if not torch.equal(got.cpu(), want):
+                fail(f"{label}: step {int(got)} != {int(want)}")
+            continue
+        want = want.to(dev)
+        if key.startswith("opt/"):
+            got, want = got.float(), want.float()
+            scale = float(want.abs().max())
+            err = float((got - want).abs().max())
+            worst["moments"] = max(worst["moments"],
+                                   err / max(scale, 1e-30))
+            if not torch.allclose(got, want, rtol=1e-4,
+                                  atol=moment_tol * scale):
+                fail(f"{label}: {key} differs on the card by up to "
+                     f"{err:.3e} (largest magnitude {scale:.3e})")
+            continue
+        name = key[len("params/"):]
+        mom = lambda side: tuple(side[f"opt/{m}/{name}"].to(dev).double()
+                                 for m in ("mu", "nu"))
+        tol = lm_train_update_tolerance(tcfg.optimizer, t, lr, mom(b),
+                                        mom(a), want)
+        p0 = before[key].double()
+        gap = ((got.double() - p0) - (want.double() - p0)).abs()
+        n_bad = int((gap > tol).sum())
+        worst["update"] = max(worst["update"], float((gap / tol).max()))
+        worst["tight"] += int((tol < 1e-3 * lr).sum())
+        worst["unpinned"] += int((tol > lr / 2).sum())
+        n_params += tol.numel()
+        if n_bad:
+            fail(f"{label}: {key}: {n_bad} updates on the card off the "
+                 f"CPU's, the worst by {float(gap.max()):.3e} (lr "
+                 f"{lr:.3e})")
+        del tol, gap, p0
+    worst["tight"] /= n_params
+    return worst
+
+
+def lm_train_checked_step(step_fn, card, cpu, batch, dev, moment_tol, tcfg,
+                          label):
+    """One step of `step_fn` on the CPU and on the card from the same
+    state, held by `lm_train_card_vs_cpu`.  Returns (card state, cpu
+    state, card metrics, the worst errors, CPU step ms, card step ms)."""
+    import torch
+    from repro_torch.checkpoint import io
+    before = {k: v.clone() for k, v in io.flatten_state(card).items()
+              if k.startswith("params/")}
+    cpu, m_cpu, cpu_ms = lm_train_step(step_fn, cpu, batch,
+                                       torch.device("cpu"))
+    card, m_card, card_ms = lm_train_step(step_fn, card, batch, dev)
+    worst = lm_train_card_vs_cpu(before, card, cpu, m_card, m_cpu,
+                                 moment_tol, tcfg, label)
+    return card, cpu, m_card, worst, cpu_ms, card_ms
+
+
+def lm_train_worst(w) -> str:
+    return (f"worst: metrics {w['metrics']:.1e}, update gap "
+            f"{w['update']:.2f} of its tolerance ({100 * w['tight']:.4f}% of "
+            f"elements held within 1e-3 of lr, {w['unpinned']} unpinned), "
+            f"moments {w['moments']:.1e} of scale")
+
+
+def lm_train_same_bits(a, b, m_a, m_b, label) -> None:
+    """Two runs of the same steps on the card: equal metrics and every
+    parameter and moment bit for bit."""
+    import torch
+    from repro_torch.checkpoint import io
+    if m_a != m_b:
+        fail(f"{label}: a repeat on the card gave other metrics: "
+             f"{m_a} != {m_b}")
+    la, lb = io.flatten_state(a), io.flatten_state(b)
+    for key, t in la.items():
+        if not torch.equal(t, lb[key]):
+            fail(f"{label}: a repeat on the card gave another {key}")
+
+
+def lm_train_bound_ms(model, B: int, S: int) -> tuple[float, float]:
+    """(bound ms, FLOP) of one train step with full remat: every block
+    product 4 times (forward, the recompute, 2 in backward: 8·params·T),
+    the head 4 times (the chunked CE recomputes it), the causal attention
+    products 4 times, over the dtype's peak; against the parameters and
+    float32 moments read and written once over 3.35 TB/s."""
+    from repro_torch.models import transformer
+    cfg, c = model.cfg, lm_counts(model)
+    T = B * S
+    win = cfg.sliding_window or S
+    keys = sum(min(t + 1, win) for t in range(S))
+    flops = (8 * (c["blocks"] + c["head"]) * T
+             + 4 * c["attn_layers"] * 4 * B * cfg.num_heads * cfg.hd * keys)
+    n = transformer.param_count(model)
+    nbytes = n * (2 * c["eb"] + 2 * 2 * 4)
+    peak = BF16_FLOP_PER_S if cfg.dtype == "bfloat16" else FP32_FLOP_PER_S
+    return max(flops / peak, nbytes / HBM_BYTES_PER_S) * 1e3, flops
+
+
+def lm_train_timing(state, step_fn, batches, dev, label,
+                    profile: bool = False) -> dict:
+    """Steps over `batches` (each ending in a sync), the first a warm-up:
+    p50/p99 host ms of the others, tokens/s at p50, the bound, peak
+    memory; with `profile` one more step under the profiler."""
+    import numpy as np
+    import torch
+    cfg = state["model"].cfg
+    B, S = batches[0]["labels"].shape
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    ms, ces = [], []
+    for batch in batches:
+        state, m, t = lm_train_step(step_fn, state, batch, dev)
+        ms.append(t)
+        ces.append(m["ce"])
+    peak = torch.cuda.max_memory_allocated() / 2**30
+    steady = sorted(ms[1:])
+    bound, flops = lm_train_bound_ms(state["model"], B, S)
+    r = dict(B=B, S=S, steps=len(ms), first_ms=ms[0],
+             p50_ms=percentile(steady, 0.5), p99_ms=percentile(steady, 0.99),
+             bound_ms=bound, tflop=flops / 1e12, peak_gib=peak, ce=ces)
+    r["tokens_per_s"] = B * S / r["p50_ms"] * 1e3
+    if not np.isfinite(ces).all():
+        fail(f"{label}: non-finite ce {ces}")
+    log(f"  {label} {cfg.name} ({cfg.dtype}) B={B} x S={S}: first step "
+        f"{ms[0]:.1f} ms, then p50 {r['p50_ms']:.1f} / p99 "
+        f"{r['p99_ms']:.1f} ms a step ({r['tokens_per_s']:.0f} tokens/s), "
+        f"bound {bound:.2f} ms ({r['tflop']:.2f} TFLOP), peak "
+        f"{peak:.2f} GiB; ce {ces[0]:.4f} -> {ces[-1]:.4f}")
+    if profile:
+        batch = {k: v.to(dev) for k, v in batches[-1].items()}
+        profiled(lambda: step_fn(state, batch), r["p50_ms"] / 1e3)
+    return r
+
+
+def lm_train_archs(args, dev) -> dict:
+    """(a): every registered architecture's reduced variant (float32), one
+    step on the card against the CPU's from the same state, a repeat on
+    the card bit-equal; the steps' deterministic-algorithm alerts
+    counted under warn_only (a census: the fatal check is the repeat)."""
+    import warnings
+    import torch
+    from repro_torch.configs.base import get_arch, list_archs
+    from repro_torch.train import step as tstep
+    from repro_torch.optim import adamw
+    out, alerts = {}, {}
+    tcfg = tstep.TrainConfig(ce_chunks=4, optimizer=adamw.AdamWConfig(
+        **LM_TRAIN_CHECK_OPT))
+    for i, arch in enumerate(list_archs()):
+        t0 = time.perf_counter()
+        cfg = get_arch(arch).reduced()
+        step_fn = tstep.make_train_step(cfg, tcfg)
+        card, cpu = lm_train_init(cfg, tcfg, args.seed + i, dev)
+        again = lm_train_clone(card, tcfg, dev)
+        census = lm_train_clone(card, tcfg, dev)
+        batch = lm_train_batch(cfg, *LM_TRAIN_SMALL, args.seed + i)
+        card, cpu, m_card, worst, cpu_ms, card_ms = lm_train_checked_step(
+            step_fn, card, cpu, batch, dev, 1e-4, tcfg, f"(a) {arch}")
+        again, m_again, again_ms = lm_train_step(step_fn, again, batch, dev)
+        lm_train_same_bits(card, again, m_card, m_again, f"(a) {arch}")
+        before = (torch.are_deterministic_algorithms_enabled(),
+                  torch.is_deterministic_algorithms_warn_only_enabled())
+        with warnings.catch_warnings(record=True) as caught:
+            warnings.simplefilter("always")
+            torch.use_deterministic_algorithms(True, warn_only=True)
+            try:
+                lm_train_step(step_fn, census, batch, dev)
+            finally:
+                torch.use_deterministic_algorithms(before[0],
+                                                   warn_only=before[1])
+        for w in caught:
+            msg = str(w.message).split(".")[0][:90]
+            alerts[msg] = alerts.get(msg, 0) + 1
+        out[arch] = dict(worst=worst, cpu_ms=cpu_ms, card_ms=card_ms,
+                         repeat_ms=again_ms, s=time.perf_counter() - t0)
+        log(f"  (a) {arch}: one step card == CPU ({lm_train_worst(worst)}), "
+            f"repeat bit-equal; card {card_ms:.0f} / {again_ms:.0f} ms, CPU {cpu_ms:.0f} ms; {out[arch]['s']:.1f} s")
+        del card, cpu, again, census
+    log(f"  (a) deterministic-algorithm alerts over the 11 steps: "
+        f"{json.dumps(alerts)}")
+    out["alerts"] = alerts
+    return out
+
+
+def phase12(args, dev) -> dict:
+    """LM training on the card; see the module docstring."""
+    import dataclasses as dc
+    import numpy as np
+    import torch
+    from repro_torch.checkpoint import io
+    from repro_torch.configs.base import get_arch
+    from repro_torch.data.synthetic import TokenStream
+    from repro_torch.kernels import cat_hist, feat_hist, split_scan
+    from repro_torch.launch import train as launch_train
+    from repro_torch.models import moe
+    from repro_torch.optim import adamw
+    from repro_torch.train import step as tstep
+    t_phase = time.perf_counter()
+    kernels = {"split_scan": split_scan, "cat_hist": cat_hist,
+               "feat_hist": feat_hist}
+    for mod in kernels.values():
+        mod.launches = 0
+    smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
+                          "--format=csv,noheader"], capture_output=True,
+                         text=True).stdout.strip().splitlines()[0]
+    log(f"  on {smi}")
+    out = {"card": smi, "a": lm_train_archs(args, dev)}
+
+    # (b) the ~100M config of examples/train_lm.py --hundred-m
+    t0 = time.perf_counter()
+    cfg = dc.replace(get_arch("qwen3-0.6b"), num_layers=12, d_model=768,
+                     d_ff=2048, num_heads=12, num_kv_heads=4, head_dim=64,
+                     vocab_size=32768, dtype="float32")
+    tcfg = tstep.TrainConfig(ce_chunks=4, optimizer=adamw.AdamWConfig(
+        **LM_TRAIN_CHECK_OPT))
+    card, cpu = lm_train_init(cfg, tcfg, args.seed, dev)
+    batch = lm_train_batch(cfg, *LM_TRAIN_CHECK, args.seed)
+    card, cpu, _, worst_b, cpu_ms, _ = lm_train_checked_step(
+        tstep.make_train_step(cfg, tcfg), card, cpu, batch, dev, 1e-3, tcfg,
+        "(b) 100M")
+    del card, cpu
+    log(f"  (b) {cfg.num_layers} x {cfg.d_model}, vocab {cfg.vocab_size}: "
+        f"one step at B={LM_TRAIN_CHECK[0]} x S={LM_TRAIN_CHECK[1]} card == "
+        f"CPU ({lm_train_worst(worst_b)}); CPU step {cpu_ms:.0f} ms; "
+        f"{time.perf_counter() - t0:.1f} s")
+    step_ms = []
+    make = tstep.make_train_step
+
+    def timed_make(*a, **k):        # launch.train's step, each call timed
+        fn = make(*a, **k)
+
+        def timed(state, batch):
+            torch.cuda.synchronize()
+            t1 = time.perf_counter()
+            state, m = fn(state, batch)
+            torch.cuda.synchronize()
+            step_ms.append((time.perf_counter() - t1) * 1e3)
+            return state, m
+        return timed
+    B, S = LM_TRAIN_100M
+    torch.cuda.reset_peak_memory_stats()
+    launch_train.train_step_lib.make_train_step = timed_make
+    try:
+        state_b, losses = launch_train.train_loop(
+            cfg, steps=LM_TRAIN_100M_STEPS, batch=B, seq=S, lr=1e-3,
+            seed=args.seed, log_every=50, ce_chunks=4, device=dev)
+    finally:
+        launch_train.train_step_lib.make_train_step = make
+    peak = torch.cuda.max_memory_allocated() / 2**30
+    first, last = float(np.mean(losses[:10])), float(np.mean(losses[-10:]))
+    if not last < first:
+        fail(f"(b) the loss did not fall: ce first10 {first:.4f}, last10 "
+             f"{last:.4f}")
+    steady = sorted(step_ms[1:])
+    bound, flops = lm_train_bound_ms(state_b["model"], B, S)
+    out["b"] = dict(worst=worst_b, steps=len(step_ms), first_ms=step_ms[0],
+                    p50_ms=percentile(steady, 0.5),
+                    p99_ms=percentile(steady, 0.99), bound_ms=bound,
+                    tflop=flops / 1e12, peak_gib=peak, ce_first10=first,
+                    ce_last10=last, s=time.perf_counter() - t0)
+    out["b"]["tokens_per_s"] = B * S / out["b"]["p50_ms"] * 1e3
+    log(f"  (b) launch.train.train_loop {LM_TRAIN_100M_STEPS} steps at "
+        f"B={B} x S={S}, lr 1e-3: ce first10 {first:.4f} -> last10 "
+        f"{last:.4f}; first step {step_ms[0]:.1f} ms, then p50 "
+        f"{out['b']['p50_ms']:.1f} / p99 {out['b']['p99_ms']:.1f} ms a step "
+        f"({out['b']['tokens_per_s']:.0f} tokens/s), bound {bound:.2f} ms "
+        f"({flops / 1e12:.2f} TFLOP, float32), peak {peak:.2f} GiB; "
+        f"{out['b']['s']:.1f} s")
+
+    # (e) train-state checkpoints written and restored on the card
+    ckdir = ROOT / "build" / "repro_torch" / "lm_train"
+    try:
+        path = str(ckdir / "state_100m.npz")
+        io.save_state(path, state_b)
+        back = io.restore_state(path, cfg, tcfg, device=dev)
+        lm_train_same_bits(state_b, back, {}, {}, "(e) 100M checkpoint")
+        small = dc.replace(get_arch("qwen3-0.6b").reduced(), dtype="bfloat16")
+        stcfg = tstep.TrainConfig(ce_chunks=4, optimizer=adamw.AdamWConfig(
+            moments_dtype="bfloat16"))
+        st, _ = lm_train_init(small, stcfg, args.seed, dev)
+        st, _, _ = lm_train_step(tstep.make_train_step(small, stcfg), st,
+                                 lm_train_batch(small, *LM_TRAIN_SMALL,
+                                                args.seed), dev)
+        path = str(ckdir / "state_bf16.npz")
+        io.save_state(path, st)
+        back = io.restore_state(path, small, stcfg, device=dev)
+        lm_train_same_bits(st, back, {}, {}, "(e) bfloat16 checkpoint")
+    finally:
+        shutil.rmtree(ckdir, ignore_errors=True)
+    log("  (e) train-state checkpoints (the 100M float32 state after "
+        f"{LM_TRAIN_100M_STEPS} steps; a bfloat16 state with bfloat16 "
+        "moments) written and restored on the card bit for bit")
+    del state_b, back, st
+    torch.cuda.empty_cache()
+
+    # (c) qwen3-0.6b at full width: one float32 step card == CPU, then
+    # bfloat16 steps timed
+    t0 = time.perf_counter()
+    cfg = dc.replace(get_arch("qwen3-0.6b"), dtype="float32")
+    tcfg = tstep.TrainConfig(optimizer=adamw.AdamWConfig(
+        **LM_TRAIN_CHECK_OPT))
+    card, cpu = lm_train_init(cfg, tcfg, args.seed, dev)
+    batch = lm_train_batch(cfg, *LM_TRAIN_CHECK, args.seed)
+    init_s = time.perf_counter() - t0
+    card, cpu, _, worst_c, cpu_ms, _ = lm_train_checked_step(
+        tstep.make_train_step(cfg, tcfg), card, cpu, batch, dev, 1e-3, tcfg,
+        "(c) qwen3-0.6b float32")
+    log(f"  (c) qwen3-0.6b float32, {cfg.num_layers} layers: one step at "
+        f"B={LM_TRAIN_CHECK[0]} x S={LM_TRAIN_CHECK[1]} card == CPU "
+        f"({lm_train_worst(worst_c)}); init and host copy {init_s:.1f} s, "
+        f"CPU step {cpu_ms:.0f} ms; {time.perf_counter() - t0:.1f} s")
+    del card, cpu
+    torch.cuda.empty_cache()
+    cfg = get_arch("qwen3-0.6b")
+    tcfg = tstep.TrainConfig()
+    B, S = LM_TRAIN_FULL
+    stream = TokenStream(cfg.vocab_size, S, B, args.seed)
+    batches = [launch_train.to_batch(next(stream), "cpu")
+               for _ in range(LM_TRAIN_FULL_STEPS)]
+    step_fn = tstep.make_train_step(cfg, tcfg)
+    state = tstep.init_train_state(args.seed, cfg, tcfg, device=dev)
+    out["c"] = dict(worst=worst_c, **lm_train_timing(
+        state, step_fn, batches, dev, "(c)", args.profile))
+    del state
+    torch.cuda.empty_cache()
+
+    # (f) two identical runs of 3 steps: the same bits
+    runs = []
+    for _ in range(2):
+        st = tstep.init_train_state(args.seed, cfg, tcfg, device=dev)
+        ms = []
+        for batch in batches[:LM_TRAIN_REPEAT_STEPS]:
+            st, m, _ = lm_train_step(step_fn, st, batch, dev)
+            ms.append(m)
+        runs.append((st, ms))
+    lm_train_same_bits(runs[0][0], runs[1][0], runs[0][1], runs[1][1],
+                       "(f) qwen3-0.6b bfloat16")
+    out["f"] = dict(ce=[m["ce"] for m in runs[0][1]])
+    log(f"  (f) two runs of {LM_TRAIN_REPEAT_STEPS} bfloat16 steps of "
+        f"qwen3-0.6b at B={B} x S={S}: every metric and every parameter "
+        f"and moment bit-equal (ce {out['f']['ce']})")
+    del runs, st
+    torch.cuda.empty_cache()
+
+    # (d) olmoe-1b-7b at full width, 2 layers
+    t0 = time.perf_counter()
+    cfg = dc.replace(get_arch("olmoe-1b-7b"), num_layers=2, dtype="float32")
+    tcfg = tstep.TrainConfig(optimizer=adamw.AdamWConfig(
+        **LM_TRAIN_CHECK_OPT))
+    card, cpu = lm_train_init(cfg, tcfg, args.seed, dev)
+    again = lm_train_clone(card, tcfg, dev)
+    step_fn = tstep.make_train_step(cfg, tcfg)
+    batch = lm_train_batch(cfg, *LM_TRAIN_CHECK, args.seed)
+    calls = []                      # the CPU's, the card's
+    orig = lm_route_recorder(calls)
+    try:
+        card, cpu, m_card, worst_d, cpu_ms, _ = lm_train_checked_step(
+            step_fn, card, cpu, batch, dev, 1e-3, tcfg,
+            "(d) olmoe-1b-7b float32")
+    finally:
+        moe.route = orig
+    n_calls = len(calls) // 2
+    route_ties = lm_same_experts(calls[:n_calls], calls[n_calls:],
+                                 cfg.num_experts_per_tok)
+    again, m_again, _ = lm_train_step(step_fn, again, batch, dev)
+    lm_train_same_bits(card, again, m_card, m_again, "(d) olmoe-1b-7b")
+    log(f"  (d) olmoe-1b-7b float32 ({cfg.num_experts} experts top-"
+        f"{cfg.num_experts_per_tok}, {cfg.num_layers} layers): one step "
+        f"card == CPU ({lm_train_worst(worst_d)}), expert ids equal in "
+        f"{n_calls} router calls (ties {route_ties}), repeat bit-equal; CPU "
+        f"step {cpu_ms:.0f} ms; {time.perf_counter() - t0:.1f} s")
+    del card, cpu, again
+    torch.cuda.empty_cache()
+    bcfg = dc.replace(cfg, dtype="bfloat16")
+    tcfg = tstep.TrainConfig()
+    B, S = LM_TRAIN_FULL
+    stream = TokenStream(bcfg.vocab_size, S, B, args.seed)
+    batches = [launch_train.to_batch(next(stream), "cpu")
+               for _ in range(LM_TRAIN_MOE_STEPS)]
+    state = tstep.init_train_state(args.seed, bcfg, tcfg, device=dev)
+    out["d"] = dict(worst=worst_d, router_calls=n_calls,
+                    route_ties=route_ties, **lm_train_timing(
+                        state, tstep.make_train_step(bcfg, tcfg), batches,
+                        dev, "(d)", args.profile))
+    del state
+    torch.cuda.empty_cache()
+
+    launches = {name: mod.launches for name, mod in kernels.items()}
+    if any(launches.values()):
+        fail(f"phase 12 launched a kernel off its path: {launches}")
+    out["launches"] = launches
+    out["phase_s"] = time.perf_counter() - t_phase
+    log(f"  no kernel launched in phase 12 ({json.dumps(launches)}); "
+        f"phase 12 total {out['phase_s']:.1f} s")
+    log(f"  phase 12 {json.dumps(out)}")
     return out
 
 
@@ -3186,6 +3724,8 @@ def main() -> int:
                     help=argparse.SUPPRESS)
     ap.add_argument("--lm", action="store_true",
                     help="build, then only phase 11 (LM serving)")
+    ap.add_argument("--lm-train", action="store_true",
+                    help="build, then only phase 12 (LM training)")
     args = ap.parse_args()
 
     src = (args.src or ROOT / "src").resolve()
@@ -3228,6 +3768,11 @@ def main() -> int:
     if args.lm:
         log("phase 11: LM serving on the card")
         phase11(args, dev)
+        log(f"  total {time.perf_counter() - t_start:.1f} s")
+        return 0
+    if args.lm_train:
+        log("phase 12: LM training on the card")
+        phase12(args, dev)
         log(f"  total {time.perf_counter() - t_start:.1f} s")
         return 0
 
@@ -3353,6 +3898,9 @@ def main() -> int:
     log("phase 11: LM serving on the card")
     lm_info = phase11(args, dev)
 
+    log("phase 12: LM training on the card")
+    train_info = phase12(args, dev)
+
     kernels = []
     sources = {"split_scan": ("src/repro_torch/csrc/split_scan.cu",
                               "src/repro/kernels/split_scan.py:164",
@@ -3380,8 +3928,10 @@ def main() -> int:
                 sharded[name]]["launches"]]} if name in sharded else {}),
             lm=dict(launches=lm_info["e"]["launches"].get(name, 0),
                     **(lm_info["e"]["split_scan"] if name == "split_scan"
-                       else {}))))
-    log(f"  phase 11 total {lm_info['phase_s']:.1f} s; whole script total "
+                       else {})),
+            lm_train=dict(launches=train_info["launches"][name])))
+    log(f"  phase 11 total {lm_info['phase_s']:.1f} s; phase 12 total "
+        f"{train_info['phase_s']:.1f} s; whole script total "
         f"{time.perf_counter() - t_start:.1f} s")
     print(json.dumps({"kernels": kernels}), flush=True)
     print(smi, flush=True)

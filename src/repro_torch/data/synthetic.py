@@ -1,9 +1,10 @@
-"""Synthetic tabular datasets, ported from `repro.data.synthetic`.
+"""Synthetic datasets, ported from `repro.data.synthetic`.
 
-The families follow the paper's §4 artificial benchmark (xor, majority,
-needle ground truths with informative + useless variables).  numpy only,
-drawn from the same seeds as the reference, so both packages train on
-identical data.
+The tabular families follow the paper's §4 artificial benchmark (xor,
+majority, needle ground truths with informative + useless variables).
+The LM side is `TokenStream`, an infinite deterministic token stream for
+the training path.  numpy only, drawn from the same seeds as the
+reference, so both packages train on identical data.
 """
 from __future__ import annotations
 
@@ -55,3 +56,42 @@ def train_test_split(ds: TabularDataset, test_frac: float = 0.25,
                           ds.arities, ds.task)
 
     return take(tr), take(te)
+
+
+# ---------------------------------------------------------------------------
+# LM token pipeline
+# ---------------------------------------------------------------------------
+
+class TokenStream:
+    """Deterministic synthetic LM data: a 2-gram Markov source over `vocab`
+    tokens with a learnable structure (so loss visibly decreases).
+
+    The successor table is drawn from `default_rng(seed)` and batch i from
+    `default_rng(1000 + i)`, as the reference draws them: both packages
+    see the same int32 batches bit for bit."""
+
+    def __init__(self, vocab_size: int, seq_len: int, batch: int,
+                 seed: int = 0):
+        self.vocab, self.seq, self.batch = vocab_size, seq_len, batch
+        rng = np.random.default_rng(seed)
+        k = min(vocab_size, 256)
+        self._succ = rng.integers(0, vocab_size, size=(k, 4))
+        self._k = k
+        self._step = 0
+
+    def __iter__(self):
+        return self
+
+    def __next__(self):
+        rng = np.random.default_rng(1000 + self._step)
+        self._step += 1
+        toks = np.empty((self.batch, self.seq + 1), np.int32)
+        toks[:, 0] = rng.integers(0, self.vocab, size=self.batch)
+        for t in range(1, self.seq + 1):
+            prev = toks[:, t - 1] % self._k
+            choice = rng.integers(0, 4, size=self.batch)
+            nxt = self._succ[prev, choice]
+            noise = rng.integers(0, self.vocab, size=self.batch)
+            use_noise = rng.random(self.batch) < 0.1
+            toks[:, t] = np.where(use_noise, noise, nxt)
+        return {"inputs": toks[:, :-1], "labels": toks[:, 1:]}

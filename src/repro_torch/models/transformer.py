@@ -12,6 +12,11 @@ parameters as views of the stacks.
     logits, aux, caches = model.forward(tokens, collect_cache=True)
     logits, caches = model.decode_step(caches, tok, cache_len)
 
+Serving runs with the parameters' gradients off.  Training turns them on
+with `model.requires_grad_(True)` (`repro_torch.train.step` does) and
+calls `forward_hidden(..., remat=)`, which checkpoints each block as the
+reference's scan body does.
+
 `inputs` is tokens (B,S) int64 for input_mode="tokens", or precomputed
 embeddings (B,S,D) for the audio/VLM stub frontends.  Decode updates the
 cache tensors IN PLACE (the new k/v row, the recurrent states) and returns
@@ -20,11 +25,13 @@ option on the card.
 """
 from __future__ import annotations
 
+import functools
 import math
 from typing import Optional
 
 import torch
 from torch import nn
+from torch.utils import checkpoint as ckpt
 
 from repro_torch.device import resolve_device
 from repro_torch.models import layers, mamba as mamba_lib, moe as moe_lib, \
@@ -84,7 +91,7 @@ class ParamTree(nn.Module):
     """A nested dict of tensors as a module: each dict a child module, each
     tensor a parameter (no gradient while serving).  `tree[name]` reads a
     child or a tensor, as the layer functions index the reference's dicts;
-    `tree.block(b)` is block b's slice of every stacked tensor."""
+    `tree.unbind()[b]` is block b's slice of every stacked tensor."""
 
     def __init__(self, tree: dict):
         super().__init__()
@@ -101,10 +108,32 @@ class ParamTree(nn.Module):
     def __contains__(self, k) -> bool:
         return k in self._parameters or k in self._modules
 
-    def block(self, b: int) -> dict:
-        out = {k: v[b] for k, v in self._parameters.items()}
-        out.update((k, m.block(b)) for k, m in self._modules.items())
+    def unbind(self) -> list:
+        """Every block's slice of every stacked tensor, from one
+        `unbind(0)` per stack: under autograd its backward is one `stack`
+        per stack, where a select per block would each add a zero tensor
+        the size of the whole stack into the gradient."""
+        per = {k: v.unbind(0) for k, v in self._parameters.items()}
+        per.update((k, m.unbind()) for k, m in self._modules.items())
+        nb = len(next(iter(per.values())))
+        return [{k: v[b] for k, v in per.items()} for b in range(nb)]
+
+    def tree(self) -> dict:
+        """The parameters as the reference's nested dict (the tensors
+        themselves, not copies)."""
+        out = dict(self._parameters)
+        out.update((k, m.tree()) for k, m in self._modules.items())
         return out
+
+
+def _save_matmuls(ctx, op, *args, **kwargs):
+    """The `dots` remat policy, JAX's `checkpoint_dots_with_no_batch_dims`:
+    keep the outputs of products without batch dimensions (`x @ w`
+    reaches the dispatcher as `mm`), recompute everything else (the
+    attention and expert `bmm`s included)."""
+    if op is torch.ops.aten.mm.default:
+        return ckpt.CheckpointPolicy.MUST_SAVE
+    return ckpt.CheckpointPolicy.PREFER_RECOMPUTE
 
 
 class Transformer(nn.Module):
@@ -132,43 +161,37 @@ class Transformer(nn.Module):
         return x
 
     def forward_hidden(self, inputs, positions=None,
-                       collect_cache: bool = False):
-        """Backbone only: returns (final hidden (B,S,D), aux_loss, caches)."""
+                       collect_cache: bool = False, remat: str = "none"):
+        """Backbone only: returns (final hidden (B,S,D), aux_loss, caches).
+
+        `remat` ("none" | "full" | "dots") checkpoints EACH BLOCK, as the
+        reference's scan body: backward recomputes one block at a time,
+        so the activations kept are the per-block carries plus one
+        block's transients.  "full" keeps nothing of a block, "dots" its
+        products without batch dimensions.  Each stack's block views come
+        from one `unbind` and enter the checkpointed block as inputs."""
         cfg = self.cfg
         B, S = inputs.shape[:2]
         if positions is None:
             positions = torch.arange(S, device=self.device)[None].expand(B, S)
         x = self._embed(inputs, positions)
         aux = torch.zeros((), dtype=torch.float32, device=self.device)
+        body = functools.partial(self._block, positions=positions,
+                                 collect_cache=collect_cache)
+        if remat == "full":
+            body = functools.partial(ckpt.checkpoint, body,
+                                     use_reentrant=False)
+        elif remat == "dots":
+            body = functools.partial(
+                ckpt.checkpoint, body, use_reentrant=False,
+                context_fn=functools.partial(
+                    ckpt.create_selective_checkpoint_contexts,
+                    _save_matmuls))
+        elif remat != "none":
+            raise ValueError(f"remat must be none, full or dots: {remat!r}")
         per_block = []
-        blocks = self.params["blocks"]
-        for b in range(cfg.num_blocks):
-            bp = blocks.block(b)
-            caches = {}
-            for i, (mix, ffn) in enumerate(cfg.block_pattern):
-                pp = bp[f"pos{i}"]
-                h = layers.rms_norm(x, pp["norm1"], cfg.norm_eps)
-                if mix == "attn":
-                    mo, kv = layers.attention(pp["mixer"], h, cfg, positions)
-                    cch = {"k": kv[0], "v": kv[1]}
-                elif mix == "mamba":
-                    mo, st = mamba_lib.mamba(pp["mixer"], h, cfg)
-                    cch = {"conv": st[0], "h": st[1]}
-                else:  # rwkv
-                    mo, st = rwkv_lib.timemix(pp["mixer"], h, cfg)
-                    cch = {"x_tm": st[0], "S": st[1]}
-                x = x + mo
-                h2 = layers.rms_norm(x, pp["norm2"], cfg.norm_eps)
-                if ffn == "dense":
-                    f = layers.mlp(pp["ffn"], h2)
-                elif ffn == "moe":
-                    f, al = moe_lib.moe_ffn(pp["ffn"], h2, cfg)
-                    aux = aux + al
-                else:  # channelmix
-                    f, xcm = rwkv_lib.channelmix(pp["ffn"], h2, cfg)
-                    cch["x_cm"] = xcm
-                x = x + f
-                caches[f"pos{i}"] = cch
+        for bp in self.params["blocks"].unbind():
+            x, aux, caches = body(x, aux, bp)
             if collect_cache:
                 per_block.append(caches)
         x = layers.rms_norm(x, self.params["final_norm"], cfg.norm_eps)
@@ -178,6 +201,38 @@ class Transformer(nn.Module):
                          for name in per_block[0][pos]}
                    for pos in per_block[0]}
         return x, aux, stacked
+
+    def _block(self, x, aux, bp, positions, collect_cache):
+        """One block of `cfg.block_pattern` on block parameters `bp`:
+        returns (x, aux, caches, empty unless `collect_cache`)."""
+        cfg = self.cfg
+        caches = {}
+        for i, (mix, ffn) in enumerate(cfg.block_pattern):
+            pp = bp[f"pos{i}"]
+            h = layers.rms_norm(x, pp["norm1"], cfg.norm_eps)
+            if mix == "attn":
+                mo, kv = layers.attention(pp["mixer"], h, cfg, positions)
+                cch = {"k": kv[0], "v": kv[1]}
+            elif mix == "mamba":
+                mo, st = mamba_lib.mamba(pp["mixer"], h, cfg)
+                cch = {"conv": st[0], "h": st[1]}
+            else:  # rwkv
+                mo, st = rwkv_lib.timemix(pp["mixer"], h, cfg)
+                cch = {"x_tm": st[0], "S": st[1]}
+            x = x + mo
+            h2 = layers.rms_norm(x, pp["norm2"], cfg.norm_eps)
+            if ffn == "dense":
+                f = layers.mlp(pp["ffn"], h2)
+            elif ffn == "moe":
+                f, al = moe_lib.moe_ffn(pp["ffn"], h2, cfg)
+                aux = aux + al
+            else:  # channelmix
+                f, xcm = rwkv_lib.channelmix(pp["ffn"], h2, cfg)
+                cch["x_cm"] = xcm
+            x = x + f
+            if collect_cache:
+                caches[f"pos{i}"] = cch
+        return x, aux, caches
 
     def project_logits(self, x):
         return x @ self.params["lm_head"]
@@ -196,9 +251,7 @@ class Transformer(nn.Module):
         cfg = self.cfg
         positions = cache_len[:, None]
         x = self._embed(inputs, positions)
-        blocks = self.params["blocks"]
-        for b in range(cfg.num_blocks):
-            bp = blocks.block(b)
+        for b, bp in enumerate(self.params["blocks"].unbind()):
             for i, (mix, ffn) in enumerate(cfg.block_pattern):
                 pp, cc = bp[f"pos{i}"], caches[f"pos{i}"]
                 h = layers.rms_norm(x, pp["norm1"], cfg.norm_eps)

@@ -52,19 +52,26 @@ def reference() -> types.SimpleNamespace:
 
 def reference_lm() -> types.SimpleNamespace:
     """The reference's LM scaffold: configs, models, the LM server, the
-    checkpoint io and the serving entry point.  None of them imports
-    `repro.core`, so no shim is needed."""
+    checkpoint io, the optimizer, the train step, the token stream and
+    the serving and training entry points.  None of them reaches
+    `repro.core.splits`, so no shim is needed."""
     import jax
     import jax.numpy as jnp
     from repro.checkpoint import io
     from repro.configs import base as configs
+    from repro.data import synthetic
     from repro.launch import serve as launch_serve
+    from repro.launch import train as launch_train
     from repro.models import layers, mamba, moe, rwkv, transformer
+    from repro.optim import adamw
     from repro.serve import engine
+    from repro.train import step as train_step
     return types.SimpleNamespace(
-        jax=jax, jnp=jnp, io=io, configs=configs, launch_serve=launch_serve,
+        jax=jax, jnp=jnp, io=io, configs=configs, synthetic=synthetic,
+        launch_serve=launch_serve, launch_train=launch_train,
         layers=layers, mamba=mamba, moe=moe, rwkv=rwkv,
-        transformer=transformer, engine=engine)
+        transformer=transformer, engine=engine, adamw=adamw,
+        train_step=train_step)
 
 
 def _run(code: str, env_extra=None) -> subprocess.CompletedProcess:
@@ -97,7 +104,11 @@ def test_port_modules_never_import_jax_or_reference():
                     "repro_torch.models.moe",
                     "repro_torch.models.rwkv",
                     "repro_torch.models.mamba",
-                    "repro_torch.checkpoint.io"}
+                    "repro_torch.checkpoint.io",
+                    "repro_torch.data.synthetic",
+                    "repro_torch.optim.adamw",
+                    "repro_torch.train.step",
+                    "repro_torch.launch.train"}
         assert expected <= set(names), sorted(expected - set(names))
         from repro_torch.configs.base import list_archs
         assert len(list_archs()) == 11, list_archs()
