@@ -169,7 +169,30 @@ Phases, each fatal on failure:
      tokens/s, the bound (full remat: 8·(block and head params)·tokens +
      4x the causal attention products over the dtype's peak) and peak
      memory.  `--lm-train` runs phases 0, 1 and 12 alone (with
-     `--profile`: one more step of (c) and (d) under the profiler).
+     `--profile`: one more step of (c) and (d) under the profiler);
+ 13. the rest of the reference's API, each fatal on failure: (a) the
+     legacy closure API, `fit(ds, supersplit_fn=closure)`, at 2 trees and
+     depth 10: a sorted closure calling the kernel scorer (split_scan,
+     with cat_hist for the categorical columns) on phase 3's Leo rows and
+     a hist closure (feat_hist, float thresholds) on phase 5's majority
+     rows, each warned, built per tree with no batched step and equal to
+     the engine fit's trees, the last captured call of each kernel held
+     bit-equal to its plain version; (b) sharded LM training in 4 gloo
+     ranks on this card, a (2, 2) ("data", "model") `DeviceMesh` (gloo's
+     eager collectives asked first on CUDA tensors; DTensor's functional
+     collectives routed to them): qwen3-0.6b float32, one sharded step
+     == the one-device card step and a repeat bit-equal, shard by shard
+     on each rank; then 5 bfloat16 steps (the first a warm-up) at B = 4
+     x S = 2048, remat full (p50/p99 a rank,
+     peak, collective bytes a step by axis; no scaling figure: the
+     ranks share the card); olmoe-1b-7b at full width, 2 layers, two
+     sharded bf16 steps; the reduced olmoe's sharded step on the card ==
+     on CPU gloo ranks; no kernel may launch; (c) the dry run of (b)'s
+     bf16 step on a fake (2, 2) world, whose FLOPs a rank must equal
+     (b)'s real step's and FlopCounterMode's one-device step / 4, its
+     peak printed beside (b)'s, then `launch.dryrun --arch qwen3-0.6b
+     --both-meshes --drf` (predictions, labelled so).  `--lm-mesh` runs
+     phases 0, 1 and 13 alone.
 Every fit of phases 3, 5, 6 and 8 prints the sha256 of its packed trees
 (`--forests --src DIR` prints those of phases 3, 5 and 6 for another
 tree's port, on the same rows).  Prints phase 11's, 12's and the whole
@@ -184,6 +207,7 @@ import argparse
 import dataclasses
 import hashlib
 import json
+import os
 import shutil
 import signal
 import subprocess
@@ -233,6 +257,14 @@ LM_TRAIN_FULL = (4, 2048)        # phase 12 (c), (d), (f): timed B, S
 LM_TRAIN_FULL_STEPS = 10         # phase 12 (c): steps (the first a warm-up)
 LM_TRAIN_MOE_STEPS = 4           # phase 12 (d): steps (the first a warm-up)
 LM_TRAIN_REPEAT_STEPS = 3        # phase 12 (f): steps of each of two runs
+LEGACY_TREES, LEGACY_DEPTH = 2, 10   # phase 13 (a): the closure forests
+LM_MESH_WORLD = 4                # phase 13 (b): gloo ranks on this card
+LM_MESH_SHAPE = (2, 2)           # phase 13 (b): ("data", "model")
+LM_MESH_CHECK = (2, 32)          # phase 13 (b): the float32 check's B, S
+LM_MESH_STEPS = 4                # phase 13 (b): bf16 steps after the warm-up
+LM_MESH_MOE_SMALL = (4, 32)      # phase 13 (b): the reduced olmoe's B, S
+LM_MESH_TIMEOUT = 900            # phase 13: seconds the workers may take
+LM_MESH_DEVICE = "cuda"          # phase 13 (b): the ranks' device
 
 
 def log(msg: str) -> None:
@@ -3507,6 +3539,568 @@ def phase12(args, dev) -> dict:
     return out
 
 
+# ---------------------------------------------------------------------------
+# Phase 13: the legacy closures, sharded LM training, the dry run
+# ---------------------------------------------------------------------------
+
+def legacy_fits(args, dev, leo, maj) -> dict:
+    """Phase 13 (a): `fit(ds, supersplit_fn=closure)` on the card, both
+    signatures, against the engine fits of the same forests."""
+    import warnings
+    import torch
+    from repro_torch.core import splits
+    from repro_torch.core import tree as tree_lib
+    from repro_torch.core.forest import RandomForest
+    from repro_torch.core.level.plan import _leaf_totals
+    from repro_torch.kernels import cat_hist, feat_hist, split_scan
+    from repro_torch.kernels import ops as kops
+    kernels = {"split_scan": split_scan, "cat_hist": cat_hist,
+               "feat_hist": feat_hist}
+    out = {}
+    seen = {}
+
+    def sorted_fn(sv, si, leaf_of, w, stats, cand, Lp, impurity, task,
+                  min_records):
+        """The kernel scorer, one tree: the level's totals from this
+        tree's rows, its (1, ...) tree axis put on and taken off."""
+        totals = _leaf_totals(leaf_of[None], stats[None], w[None], Lp, task)
+        call = (sv, si, leaf_of[None], w[None], labels, cand[None], totals,
+                impurity, task, min_records)
+        seen["split_scan"] = call
+        g, t = kops.split_scan_supersplit(*call)
+        return g[0], t[0]
+
+    def hist_fn(bin_of, bin_edges, leaf_of, w, stats, cand, Lp, impurity,
+                task, min_records):
+        """feat_hist tables of this tree's leaves, the bucket scorer, and
+        the winning bucket's float edge as the threshold."""
+        call = dict(x=bin_of, slot=leaf_of[None], w=w[None], y=labels,
+                    W=Lp + 1, B=bin_edges.shape[1])
+        seen["feat_hist"] = call
+        tables = kops.feature_tables(bin_of, leaf_of[None], w[None], labels,
+                                     B=bin_edges.shape[1], W=Lp + 1)
+        g, cut = splits.best_numeric_split_histogram(
+            tables[0], cand, impurity, task, min_records)
+        return g, torch.gather(bin_edges, 1, cut.long())
+
+    adapter = kops.categorical_tables
+
+    def cat_record(cat_cols, leaf_of, w, labels_, **kw):
+        seen["cat_hist"] = dict(x=cat_cols, leaf=leaf_of, w=w, y=labels_,
+                                **kw)
+        return adapter(cat_cols, leaf_of, w, labels_, **kw)
+
+    for label, ds, params, fn in (
+            ("sorted", leo, dataclasses.replace(exact_params(args),
+                                                max_depth=LEGACY_DEPTH),
+             sorted_fn),
+            ("hist", maj, dataclasses.replace(hist_params(args),
+                                              max_depth=LEGACY_DEPTH),
+             hist_fn)):
+        labels = torch.as_tensor(ds.labels, device=dev)
+        t0 = time.perf_counter()
+        plain = RandomForest(params, num_trees=LEGACY_TREES, seed=args.seed,
+                             tree_batch=LEGACY_TREES).fit(ds)
+        plain_s = time.perf_counter() - t0
+        for mod in kernels.values():
+            mod.launches = 0
+        batch0, steps0 = tree_lib._BATCH_STEP_CALLS[0], tree_lib._STEP_CALLS[0]
+        kops.categorical_tables = cat_record
+        try:
+            with warnings.catch_warnings(record=True) as caught:
+                warnings.simplefilter("always")
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                rf = RandomForest(params, num_trees=LEGACY_TREES,
+                                  seed=args.seed).fit(ds, supersplit_fn=fn)
+                torch.cuda.synchronize()
+                legacy_s = time.perf_counter() - t0
+        finally:
+            kops.categorical_tables = adapter
+        launches = {k: m.launches for k, m in kernels.items()}
+        steps = tree_lib._STEP_CALLS[0] - steps0
+        if not any("per-tree builder" in str(w.message) for w in caught):
+            fail(f"13 (a) {label}: no per-tree builder warning")
+        if tree_lib._BATCH_STEP_CALLS[0] != batch0 or steps <= 0:
+            fail(f"13 (a) {label}: {tree_lib._BATCH_STEP_CALLS[0] - batch0} "
+                 f"batched steps, {steps} per-tree steps")
+        a, b = tree_digest(plain.trees), tree_digest(rf.trees)
+        if a != b:
+            fail(f"13 (a) {label}: closure trees {b} != engine trees {a}")
+        want = ("split_scan", "cat_hist") if label == "sorted" \
+            else ("feat_hist",)
+        if any(launches[k] <= 0 for k in want):
+            fail(f"13 (a) {label}: a kernel of the path never launched: "
+                 f"{launches}")
+        out[label] = dict(launches=launches, steps=steps, sha256=b,
+                          legacy_s=legacy_s, engine_s=plain_s)
+        log(f"  (a) {label} closure fit of {LEGACY_TREES} trees, depth "
+            f"{LEGACY_DEPTH}, n={ds.n}: warned, {steps} per-tree steps, "
+            f"no batched step, launches {json.dumps(launches)}; trees == "
+            f"the engine fit's (sha256 {b[:16]}); {legacy_s:.2f} s against "
+            f"the batched engine fit's {plain_s:.2f} s")
+    # one captured call of each kernel against its plain twin, bit-equal
+    before = {k: m.launches for k, m in kernels.items()}
+    c = seen["split_scan"]
+    args_ = (c[0].contiguous(), c[1].contiguous(), c[2].contiguous(),
+             c[3].contiguous(), c[4].to(torch.float32).contiguous(),
+             c[5].contiguous(), c[6].contiguous())
+    kw = dict(impurity=c[7], task=c[8], min_records=c[9])
+    pairs = {"split_scan": (split_scan.split_scan(*args_, **kw),
+                            split_scan.split_scan_plain(*args_, **kw))}
+    c = seen["cat_hist"]
+    ca = (c["x"].contiguous(), c["leaf"].contiguous(), c["w"].contiguous(),
+          c["y"].to(torch.float32).contiguous())
+    ckw = dict(L1=c["Lp"] + 1, V=c["V"],
+               num_stats=kops.stat_dim(c.get("num_classes", 2),
+                                       c.get("task", "classification")))
+    pairs["cat_hist"] = (cat_hist.cat_hist(*ca, **ckw),
+                         cat_hist.cat_hist_plain(*ca, **ckw))
+    c = seen["feat_hist"]
+    fa = (c["x"].contiguous(), c["slot"].to(torch.int32).contiguous(),
+          c["w"].contiguous(), c["y"].to(torch.float32).contiguous())
+    fkw = dict(W=c["W"], B=c["B"], num_stats=2)
+    pairs["feat_hist"] = (feat_hist.feat_hist(*fa, **fkw),
+                          feat_hist.feat_hist_plain(*fa, **fkw))
+    for name, (k, p) in pairs.items():
+        k = k if isinstance(k, tuple) else (k,)
+        p = p if isinstance(p, tuple) else (p,)
+        if not all(torch.equal(x, y) for x, y in zip(k, p)):
+            fail(f"13 (a): {name} on the last captured closure call differs "
+                 f"from its plain version")
+    for name, mod in kernels.items():     # the checks' own launches
+        mod.launches = before[name]
+    log("  (a) the last captured split_scan, cat_hist and feat_hist calls of "
+        "the closure fits: each kernel bit-equal to its plain version")
+    return out
+
+
+def lm_mesh_probe(dev) -> dict:
+    """gloo's eager collectives on CUDA tensors over the default group:
+    "ok" or the error of each."""
+    import torch
+    import torch.distributed as dist
+    n = dist.get_world_size()
+    x = torch.ones(n, 3, device=dev)
+    calls = {
+        "all_reduce": lambda: dist.all_reduce(x.clone()),
+        "all_gather_into_tensor": lambda: dist.all_gather_into_tensor(
+            torch.empty(n * n, 3, device=dev), x),
+        "reduce_scatter_tensor": lambda: dist.reduce_scatter_tensor(
+            torch.empty(1, 3, device=dev), x),
+        "all_to_all_single": lambda: dist.all_to_all_single(
+            torch.empty_like(x), x),
+        "broadcast": lambda: dist.broadcast(x.clone(), 0)}
+    out = {}
+    for name, call in calls.items():
+        try:
+            call()
+            torch.cuda.synchronize(dev)
+            out[name] = "ok"
+        except (RuntimeError, ValueError) as e:
+            out[name] = f"{type(e).__name__}: {str(e)[:160]}"
+    return out
+
+
+def lm_mesh_init(cfg, tcfg, seed: int, dev, mesh):
+    """The train state of `cfg` drawn from `seed` on the card and sharded
+    on `mesh`; the ranks draw one at a time, so that one full state at
+    most lies on the card beside the shards."""
+    import torch
+    import torch.distributed as dist
+    from repro_torch.train import step as tstep
+    state = None
+    for r in range(dist.get_world_size()):
+        if r == dist.get_rank():
+            state = tstep.shard_state(
+                tstep.init_train_state(seed, cfg, tcfg, device=dev), mesh)
+            torch.cuda.empty_cache()
+        dist.barrier()
+    return state
+
+
+def lm_mesh_step(step_fn, state, batch, mesh, dev):
+    """One sharded step ending in a sync: (state, metrics as floats, ms)."""
+    import torch
+    from repro_torch.train import sharding as shd
+    from repro_torch.train import step as tstep
+    rules = shd.make_rules(mesh)
+    b = {k: shd.distribute(v.to(dev), mesh, shd.placements(
+        shd.logical_spec(("batch", "seq"), mesh, rules, v.shape), mesh))
+        for k, v in batch.items()}
+    sync = (lambda: torch.cuda.synchronize(dev)) if dev.type == "cuda" \
+        else (lambda: None)
+    sync()
+    t0 = time.perf_counter()
+    with shd.use_mesh_rules(mesh):
+        state, m = step_fn(state, b)
+    m = {k: tstep.scalar(v) for k, v in m.items()}
+    sync()
+    return state, m, (time.perf_counter() - t0) * 1e3
+
+
+def lm_mesh_worker(args) -> int:
+    """One rank of phase 13 (b); prints one `LM-MESH-RESULT {json}`."""
+    import dataclasses as dc
+    import torch
+    import torch.distributed as dist
+    from repro_torch.configs.base import get_arch
+    from repro_torch.data.synthetic import TokenStream
+    from repro_torch.kernels import cat_hist, feat_hist, split_scan
+    from repro_torch.launch import mesh as mesh_lib
+    from repro_torch.launch import roofline
+    from repro_torch.launch import train as launch_train
+    from repro_torch.optim import adamw
+    from repro_torch.train import step as tstep
+    rank, world, store = (int(args.lm_mesh_worker[0]),
+                          int(args.lm_mesh_worker[1]), args.lm_mesh_worker[2])
+    dev = torch.device(LM_MESH_DEVICE, 0)
+    torch.cuda.set_device(dev)
+    dist.init_process_group("gloo", store=dist.FileStore(store, world),
+                            rank=rank, world_size=world)
+    kernels = {"split_scan": split_scan, "cat_hist": cat_hist,
+               "feat_hist": feat_hist}
+    for mod in kernels.values():
+        mod.launches = 0
+    out = {"rank": rank, "gloo_cuda": lm_mesh_probe(dev)}
+    refused = {k: v for k, v in out["gloo_cuda"].items() if v != "ok"}
+    if refused:
+        fail(f"13 (b): gloo refuses on CUDA tensors: {refused}")
+    mesh_lib.eager_collectives("CUDA")
+    mesh = mesh_lib.make_host_mesh(*LM_MESH_SHAPE, device_type=dev.type)
+    cpu_mesh = mesh_lib.make_host_mesh(*LM_MESH_SHAPE, device_type="cpu")
+    me = rank == 0
+
+    # float32 qwen3-0.6b: a sharded step == the one-device card step, and a
+    # repeat of the sharded step bit-equal, each held shard by shard on
+    # its own rank (no state is gathered)
+    t0 = time.perf_counter()
+    cfg = dc.replace(get_arch("qwen3-0.6b"), dtype="float32")
+    tcfg = tstep.TrainConfig(optimizer=adamw.AdamWConfig(
+        **LM_TRAIN_CHECK_OPT))
+    step_fn = tstep.make_train_step(cfg, tcfg)
+    batch = lm_train_batch(cfg, *LM_MESH_CHECK, args.seed)
+    runs = []
+    for _ in range(2):
+        st = lm_mesh_init(cfg, tcfg, args.seed, dev, mesh)
+        st, m, _ = lm_mesh_step(step_fn, st, batch, mesh, dev)
+        runs.append((lm_mesh_shards(st, tcfg), m))
+        del st
+        torch.cuda.empty_cache()
+    lm_train_same_bits(runs[0][0], runs[1][0], runs[0][1], runs[1][1],
+                       "13 (b) qwen3-0.6b float32 sharded, repeat")
+    shards, m = runs[0]
+    del runs
+    one_shards = before = m_one = None
+    for r in range(world):          # the one-device step, one rank at a time
+        if r == rank:
+            one = tstep.init_train_state(args.seed, cfg, tcfg, device=dev)
+            before = {k: v for k, v in io_flat(lm_mesh_shards(
+                tstep.shard_state(one, mesh), tcfg)).items()
+                if k.startswith("params/")}
+            one, m_one, _ = lm_train_step(step_fn, one, batch, dev)
+            one_shards = lm_train_clone(lm_mesh_shards(
+                tstep.shard_state(one, mesh), tcfg), tcfg, "cpu")
+            del one
+            torch.cuda.empty_cache()
+        dist.barrier()
+    worst = lm_train_card_vs_cpu(before, shards, one_shards, m, m_one, 1e-3,
+                                 tcfg, "13 (b) qwen3-0.6b float32 sharded")
+    out["f32"] = dict(worst=worst, s=time.perf_counter() - t0)
+    del shards, one_shards, before
+    torch.cuda.empty_cache()
+    dist.barrier()
+
+    # bfloat16 qwen3-0.6b at B = 4 x 2048, remat full: timed steps
+    cfg = get_arch("qwen3-0.6b")
+    tcfg = tstep.TrainConfig()
+    step_fn = tstep.make_train_step(cfg, tcfg)
+    B, S = LM_TRAIN_FULL
+    stream = TokenStream(cfg.vocab_size, S, B, args.seed)
+    batches = [launch_train.to_batch(next(stream), "cpu")
+               for _ in range(LM_MESH_STEPS + 1)]
+    st = lm_mesh_init(cfg, tcfg, args.seed, dev, mesh)
+    torch.cuda.reset_peak_memory_stats()
+    ms, ces = [], []
+    for i, batch in enumerate(batches):
+        if i == 1:
+            mesh_lib.COLLECTIVE_LOG.clear()
+        st, m, t = lm_mesh_step(step_fn, st, batch, mesh, dev)
+        ms.append(t)
+        ces.append(m["ce"])
+    by_axis = mesh_lib.collective_bytes_by_axis(mesh)
+    peak = torch.cuda.max_memory_allocated() / 2**30
+    with roofline.StepCounter(mesh) as counter:
+        lm_mesh_step(step_fn, st, batches[-1], mesh, dev)
+    steady = sorted(ms[1:])
+    out["bf16"] = dict(B=B, S=S, first_ms=ms[0], p50_ms=percentile(
+        steady, 0.5), p99_ms=percentile(steady, 0.99), peak_gib=peak,
+        ce=ces, coll_bytes_per_step={a: b / LM_MESH_STEPS
+                                     for a, b in by_axis.items()},
+        flops_per_rank=counter.flops)
+    if not all(math_isfinite(c) for c in ces):
+        fail(f"13 (b): non-finite ce {ces}")
+    del st
+    torch.cuda.empty_cache()
+    dist.barrier()
+
+    # olmoe-1b-7b at full width cut to 2 layers, bfloat16, sharded
+    cfg = dc.replace(get_arch("olmoe-1b-7b"), num_layers=2)
+    step_fn = tstep.make_train_step(cfg, tcfg)
+    stream = TokenStream(cfg.vocab_size, S, B, args.seed)
+    st = lm_mesh_init(cfg, tcfg, args.seed, dev, mesh)
+    oms, oces = [], []
+    for _ in range(2):
+        st, m, t = lm_mesh_step(step_fn, st, launch_train.to_batch(
+            next(stream), "cpu"), mesh, dev)
+        oms.append(t)
+        oces.append(m["ce"])
+    if not all(math_isfinite(c) for c in oces):
+        fail(f"13 (b): olmoe non-finite ce {oces}")
+    out["olmoe"] = dict(ms=oms, ce=oces,
+                        peak_gib=torch.cuda.max_memory_allocated() / 2**30)
+    del st
+    torch.cuda.empty_cache()
+
+    # the reduced olmoe (W = 2, experts over "data"): its sharded step on
+    # the card == the same sharded step on CPU gloo ranks
+    cfg = get_arch("olmoe-1b-7b").reduced()
+    tcfg = tstep.TrainConfig(optimizer=adamw.AdamWConfig(
+        **LM_TRAIN_CHECK_OPT))
+    step_fn = tstep.make_train_step(cfg, tcfg)
+    batch = lm_train_batch(cfg, *LM_MESH_MOE_SMALL, args.seed)
+    card = tstep.shard_state(tstep.init_train_state(args.seed, cfg, tcfg,
+                                                    device=dev), mesh)
+    host = tstep.shard_state(lm_train_clone(
+        tstep.unshard_state(card), tcfg, "cpu"), cpu_mesh)
+    before = {k: v.clone() for k, v in io_flat(
+        tstep.unshard_state(card)).items() if k.startswith("params/")}
+    card, m_card, _ = lm_mesh_step(step_fn, card, batch, mesh, dev)
+    host, m_host, _ = lm_mesh_step(step_fn, host, batch, cpu_mesh,
+                                   torch.device("cpu"))
+    card_full, host_full = (tstep.unshard_state(card),
+                            tstep.unshard_state(host))
+    if me:
+        out["olmoe_small"] = lm_train_card_vs_cpu(
+            before, card_full, host_full, m_card, m_host, 1e-3, tcfg,
+            "13 (b) olmoe reduced sharded, card vs CPU ranks")
+    launches = {k: m.launches for k, m in kernels.items()}
+    if any(launches.values()):
+        fail(f"13 (b): the sharded LM launched a kernel: {launches}")
+    out["launches"] = launches
+    dist.barrier()
+    dist.destroy_process_group()
+    print("LM-MESH-RESULT " + json.dumps(out), flush=True)
+    return 0
+
+
+def lm_mesh_shards(state, tcfg) -> dict:
+    """This rank's shards of a sharded train state, as a train state of
+    plain tensors (the same keys; each tensor the rank's own block)."""
+    from repro_torch.models import transformer
+    from repro_torch.optim import adamw
+    from repro_torch.train import step as tstep
+    loc = lambda t: t.detach().to_local()
+    model = state["model"]
+    local = transformer.Transformer(
+        model.cfg, adamw.map_tree(loc, model.params.tree()),
+        device=model.device)
+    opt = {"mu": adamw.map_tree(loc, state["opt"]["mu"]),
+           "nu": adamw.map_tree(loc, state["opt"]["nu"]),
+           "step": state["opt"]["step"]}
+    return tstep.train_state(local, tcfg, opt)
+
+
+def io_flat(state) -> dict:
+    from repro_torch.checkpoint import io
+    return io.flatten_state(state)
+
+
+def math_isfinite(x: float) -> bool:
+    import math
+    return math.isfinite(x)
+
+
+def lm_mesh_run(args) -> list:
+    """Phase 13 (b)'s LM_MESH_WORLD worker processes on this card."""
+    work = ROOT / "build" / "repro_torch" / "lm_mesh"
+    shutil.rmtree(work, ignore_errors=True)
+    work.mkdir(parents=True)
+    cmd = [sys.executable, str(Path(__file__).resolve()), "--seed",
+           str(args.seed)] + (["--src", str(args.src)] if args.src else [])
+    procs, outs = [], []
+    try:
+        procs = [subprocess.Popen(
+            cmd + ["--lm-mesh-worker", str(r), str(LM_MESH_WORLD),
+                   str(work / "store")],
+            stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
+            for r in range(LM_MESH_WORLD)]
+        for r, p in enumerate(procs):
+            text, _ = p.communicate(timeout=LM_MESH_TIMEOUT)
+            outs.append(text)
+            if p.returncode != 0:
+                fail(f"phase 13 (b): rank {r} exited {p.returncode}:\n"
+                     f"{text[-4000:]}")
+    finally:
+        for p in procs:
+            if p.poll() is None:
+                p.kill()
+                p.wait()
+        shutil.rmtree(work, ignore_errors=True)
+    ranks = []
+    for r, text in enumerate(outs):
+        lines = [ln for ln in text.splitlines()
+                 if ln.startswith("LM-MESH-RESULT ")]
+        if len(lines) != 1:
+            fail(f"phase 13 (b): rank {r} printed no result:\n"
+                 f"{text[-4000:]}")
+        ranks.append(json.loads(lines[0][len("LM-MESH-RESULT "):]))
+    return ranks
+
+
+def lm_dryrun_beside(args, dev, b0: dict) -> dict:
+    """Phase 13 (c): (b)'s bf16 configuration through the dry run on a
+    fake (2, 2) world, against (b)'s real step; then the dry run of
+    qwen3-0.6b on both production meshes with the DRF level."""
+    import torch
+    import torch.distributed as dist
+    from torch.utils.flop_counter import FlopCounterMode
+    from repro_torch.configs import base
+    from repro_torch.configs.base import get_arch
+    from repro_torch.data.synthetic import TokenStream
+    from repro_torch.launch import dryrun
+    from repro_torch.launch import train as launch_train
+    from repro_torch.train import step as tstep
+    cfg = get_arch("qwen3-0.6b")
+    B, S = LM_TRAIN_FULL
+    name = "mesh_check_train"
+    base.INPUT_SHAPES[name] = dict(seq_len=S, global_batch=B, kind="train")
+    try:
+        mesh = dryrun.production_mesh(False, shape=LM_MESH_SHAPE)
+        t0 = time.perf_counter()
+        rec = dryrun.run_one(cfg.name, name, mesh=mesh, cfg=cfg,
+                             verbose=False)
+        dry_s = time.perf_counter() - t0
+    finally:
+        del base.INPUT_SHAPES[name]
+        if dist.is_initialized():
+            dist.destroy_process_group()
+    if rec["status"] != "ok":
+        fail(f"13 (c): the dry run of (b)'s configuration: {rec}")
+    r = rec["roofline"]
+    world = LM_MESH_SHAPE[0] * LM_MESH_SHAPE[1]
+    # FlopCounterMode on the real one-device step of (b)'s configuration
+    tcfg = tstep.TrainConfig()
+    state = tstep.init_train_state(args.seed, cfg, tcfg, device=dev)
+    batch = launch_train.to_batch(next(TokenStream(cfg.vocab_size, S, B,
+                                                   args.seed)), dev)
+    with FlopCounterMode(display=False) as fc:
+        tstep.make_train_step(cfg, tcfg)(state, batch)
+    torch.cuda.synchronize()
+    del state
+    torch.cuda.empty_cache()
+    one = fc.get_total_flops()
+    if r["flops_per_dev"] != b0["bf16"]["flops_per_rank"] or \
+            r["flops_per_dev"] * world != one:
+        fail(f"13 (c): dry-run FLOPs a rank {r['flops_per_dev']:.6e}, the "
+             f"real sharded step's {b0['bf16']['flops_per_rank']:.6e}, "
+             f"FlopCounterMode one device {one:.6e} / {world}")
+    dry_peak = rec["memory"]["peak_bytes_per_device"] / 2**30
+    real_peak = b0["bf16"]["peak_gib"]
+    log(f"  (c) predicted, not measured: the dry run of (b)'s step on a fake "
+        f"{LM_MESH_SHAPE} world ({dry_s:.1f} s): {r['flops_per_dev']:.6e} "
+        f"FLOP a rank == (b)'s real step's (the rank's own ops) == "
+        f"FlopCounterMode's one-device step / {world}; peak "
+        f"{dry_peak:.2f} GiB a rank against (b)'s measured "
+        f"{real_peak:.2f} GiB (ratio {dry_peak / real_peak:.3f}); terms "
+        f"compute {r['compute_s'] * 1e3:.3f} ms, memory "
+        f"{r['memory_s'] * 1e3:.3f} ms, collective "
+        f"{r['collective_s'] * 1e3:.3f} ms")
+    t0 = time.perf_counter()
+    env = dict(os.environ, PYTHONPATH=str((args.src or ROOT / "src")))
+    p = subprocess.run([sys.executable, "-m", "repro_torch.launch.dryrun",
+                        "--arch", "qwen3-0.6b", "--both-meshes", "--drf"],
+                       capture_output=True, text=True, env=env,
+                       timeout=LM_MESH_TIMEOUT)
+    rows = [ln for ln in p.stdout.splitlines()
+            if ln.startswith(("OK", "SKIP", "ERR"))]
+    for ln in rows:
+        log(f"  (c) predicted: {ln}")
+    if p.returncode != 0:
+        fail(f"13 (c): dryrun exited {p.returncode}:\n{p.stdout[-3000:]}"
+             f"\n{p.stderr[-3000:]}")
+    log(f"  (c) dryrun --arch qwen3-0.6b --both-meshes --drf: "
+        f"{p.stdout.strip().splitlines()[-1]} in "
+        f"{time.perf_counter() - t0:.1f} s")
+    return dict(flops_per_rank=r["flops_per_dev"], one_device_flops=one,
+                dry_peak_gib=dry_peak, real_peak_gib=real_peak,
+                terms={k: r[k] for k in ("compute_s", "memory_s",
+                                         "collective_s", "dominant")},
+                rows=rows)
+
+
+def phase13(args, dev, leo=None, maj=None) -> dict:
+    """The legacy closures, sharded LM training, the dry run; see the
+    module docstring."""
+    import torch
+    from repro_torch.core.dataset import from_numpy
+    t_phase = time.perf_counter()
+    smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
+                          "--format=csv,noheader"], capture_output=True,
+                         text=True).stdout.strip().splitlines()[0]
+    log(f"  on {smi}")
+    cut = 1 << args.train_log2n
+    if leo is None:
+        num, cat, y, arities = leo_dataset(args.seed, cut)
+        leo = from_numpy(num, cat, y, arities)
+        del num, cat, y
+    if maj is None:
+        m = majority_dataset(args.seed, cut)
+        maj = from_numpy(m.num, None, m.labels)
+        del m
+    out = {"card": smi, "a": legacy_fits(args, dev, leo, maj)}
+    del leo, maj
+    torch.cuda.empty_cache()
+
+    t0 = time.perf_counter()
+    ranks = lm_mesh_run(args)
+    r0 = ranks[0]
+    log(f"  (b) {LM_MESH_WORLD} gloo ranks on this card, a {LM_MESH_SHAPE} "
+        f"(data, model) DeviceMesh; gloo's eager collectives on CUDA "
+        f"tensors: {json.dumps(r0['gloo_cuda'])} (DTensor's functional "
+        f"collectives routed to them); workers {time.perf_counter() - t0:.1f}"
+        f" s")
+    log(f"  (b) qwen3-0.6b float32 B={LM_MESH_CHECK[0]} x "
+        f"S={LM_MESH_CHECK[1]}: one sharded step == the one-device card "
+        f"step ({lm_train_worst(r0['f32']['worst'])}); a repeat bit-equal")
+    for r in ranks:
+        b = r["bf16"]
+        log(f"  (b) rank {r['rank']} qwen3-0.6b bf16 B={b['B']} x S={b['S']}"
+            f", remat full: first step {b['first_ms']:.1f} ms, then p50 "
+            f"{b['p50_ms']:.1f} / p99 {b['p99_ms']:.1f} ms a step, peak "
+            f"{b['peak_gib']:.2f} GiB (phase 12 (c), one device: 10.79 "
+            f"GiB); collective bytes a step {json.dumps(b['coll_bytes_per_step'])}"
+            f"; ce {b['ce'][0]:.4f} -> {b['ce'][-1]:.4f}")
+    log("  (b) the ranks share one card over gloo: these walls are no "
+        "scaling figure")
+    log(f"  (b) olmoe-1b-7b 2 layers bf16 sharded: steps "
+        f"{[round(x, 1) for x in r0['olmoe']['ms']]} ms, ce "
+        f"{r0['olmoe']['ce']}, peak {r0['olmoe']['peak_gib']:.2f} GiB; the "
+        f"reduced olmoe's sharded step card == CPU ranks "
+        f"({lm_train_worst(r0['olmoe_small'])})")
+    out["b"] = ranks
+    out["c"] = lm_dryrun_beside(args, dev, r0)
+    launches = {}
+    for r in ranks:
+        for k, v in r["launches"].items():
+            launches[k] = launches.get(k, 0) + v
+    out["launches_lm"] = launches
+    out["phase_s"] = time.perf_counter() - t_phase
+    log(f"  no kernel launched by the sharded LM ({json.dumps(launches)}); "
+        f"phase 13 total {out['phase_s']:.1f} s")
+    return out
+
+
 def busy_within(merged, lo, hi) -> float:
     """Device-busy microseconds inside [lo, hi], from sorted disjoint
     busy intervals."""
@@ -3726,6 +4320,11 @@ def main() -> int:
                     help="build, then only phase 11 (LM serving)")
     ap.add_argument("--lm-train", action="store_true",
                     help="build, then only phase 12 (LM training)")
+    ap.add_argument("--lm-mesh", action="store_true",
+                    help="build, then only phase 13 (legacy closures, "
+                         "sharded LM training, the dry run)")
+    ap.add_argument("--lm-mesh-worker", nargs=3, default=None,
+                    help=argparse.SUPPRESS)
     args = ap.parse_args()
 
     src = (args.src or ROOT / "src").resolve()
@@ -3741,6 +4340,8 @@ def main() -> int:
         return 1
     if args.dist_worker:
         return dist_worker(args)
+    if args.lm_mesh_worker:
+        return lm_mesh_worker(args)
     dev = torch.device("cuda", 0)
     t_start = time.perf_counter()
 
@@ -3773,6 +4374,11 @@ def main() -> int:
     if args.lm_train:
         log("phase 12: LM training on the card")
         phase12(args, dev)
+        log(f"  total {time.perf_counter() - t_start:.1f} s")
+        return 0
+    if args.lm_mesh:
+        log("phase 13: legacy closures, sharded LM training, the dry run")
+        phase13(args, dev)
         log(f"  total {time.perf_counter() - t_start:.1f} s")
         return 0
 
@@ -3892,7 +4498,7 @@ def main() -> int:
 
     log("phase 10: sharded training across ranks on the card")
     dist_info = phase10(args, dev, maj_train, refs)
-    del maj_train, maj_test
+    del maj_test
     sharded = {"cat_hist": "a", "feat_hist": "b"}
 
     log("phase 11: LM serving on the card")
@@ -3900,6 +4506,10 @@ def main() -> int:
 
     log("phase 12: LM training on the card")
     train_info = phase12(args, dev)
+
+    log("phase 13: legacy closures, sharded LM training, the dry run")
+    mesh_info = phase13(args, dev, train, maj_train)
+    del maj_train
 
     kernels = []
     sources = {"split_scan": ("src/repro_torch/csrc/split_scan.cu",
@@ -3929,9 +4539,13 @@ def main() -> int:
             lm=dict(launches=lm_info["e"]["launches"].get(name, 0),
                     **(lm_info["e"]["split_scan"] if name == "split_scan"
                        else {})),
-            lm_train=dict(launches=train_info["launches"][name])))
+            lm_train=dict(launches=train_info["launches"][name]),
+            legacy={label: info["launches"][name]
+                    for label, info in mesh_info["a"].items()},
+            lm_mesh=dict(launches=mesh_info["launches_lm"][name])))
     log(f"  phase 11 total {lm_info['phase_s']:.1f} s; phase 12 total "
-        f"{train_info['phase_s']:.1f} s; whole script total "
+        f"{train_info['phase_s']:.1f} s; phase 13 total "
+        f"{mesh_info['phase_s']:.1f} s; whole script total "
         f"{time.perf_counter() - t_start:.1f} s")
     print(json.dumps({"kernels": kernels}), flush=True)
     print(smi, flush=True)

@@ -28,6 +28,7 @@ import torch
 
 from repro_torch.models import transformer
 from repro_torch.optim import adamw
+from repro_torch.train import sharding as shd
 from repro_torch.train import step as train_step
 
 
@@ -118,9 +119,19 @@ def flatten_state(state: dict) -> dict:
 
 
 def save_state(path: str, state: dict) -> None:
-    """Write a train state as the reference writes its {"params", "opt"}."""
+    """Write a train state as the reference writes its {"params", "opt"}.
+
+    A state sharded on a mesh (DTensors, `train.step.shard_state`) is
+    gathered into full tensors, so every rank of the mesh must call this;
+    the file is written once, by global rank 0, and equals the file of
+    the same state on one device."""
+    flat = flatten_state(state)
+    sharded = any(shd.is_sharded(t) for t in flat.values())
+    arrays = {k: _host(t.full_tensor() if shd.is_sharded(t) else t)
+              for k, t in flat.items()}
+    if sharded and torch.distributed.get_rank() != 0:
+        return
     os.makedirs(os.path.dirname(os.path.abspath(path)), exist_ok=True)
-    arrays = {k: _host(t) for k, t in flatten_state(state).items()}
     arrays["opt/step"] = arrays["opt/step"].astype(np.int32)
     np.savez(path, **arrays)
 

@@ -17,6 +17,7 @@ from __future__ import annotations
 
 import dataclasses
 import os
+import warnings
 from typing import Optional
 
 import numpy as np
@@ -25,6 +26,7 @@ import torch
 from repro_torch.core import (atomicio, bagging, checkpoint as checkpoint_lib,
                               importance, presort, tree as tree_lib)
 from repro_torch.core.dataset import RowSource, TabularDataset
+from repro_torch.core.level.engines import SplitEngine
 from repro_torch.device import resolve_device
 
 
@@ -227,13 +229,21 @@ class RandomForest:
         return int(max(1, min(self.num_trees, 16, (1 << 26) // per_tree)))
 
     def fit(self, ds: TabularDataset, collect_stats: bool = False,
-            engine=None, cat_engine=None) -> "RandomForest":
+            supersplit_fn=None, engine=None,
+            cat_engine=None) -> "RandomForest":
         """Train the forest: presort once (§2.1) — and in hist mode quantize
         once — then one batched level step per depth for each group of
         `tree_batch` trees.  `engine`/`cat_engine` replace the numeric and
         categorical split engines, e.g. the mesh engines of
         `repro_torch.core.distributed`, called in every rank of the mesh
-        with the same arguments."""
+        with the same arguments.
+
+        `supersplit_fn` is the reference's legacy API: a `SplitEngine`
+        passed there is taken as the engine; a bare closure (see
+        `level.LegacyFn` for its two signatures) warns and builds the trees
+        one at a time (`tree_batch = 1`, `tree.build_tree`), since it sees
+        one tree's arrays.  The trees are the same either way.  Passing
+        both `supersplit_fn` and `engine` raises ValueError."""
         if isinstance(ds, RowSource):
             raise TypeError(
                 "fit() trains from a fully materialized TabularDataset; "
@@ -265,11 +275,33 @@ class RandomForest:
             bin_of, bin_edges = presort.quantize(num_cols.t(), sorted_vals,
                                                  self.params.num_bins)
             kw.update(bin_of=bin_of, bin_edges=bin_edges)
+        if supersplit_fn is not None and engine is not None:
+            raise ValueError(
+                "pass either engine= (a SplitEngine) or supersplit_fn=, "
+                "not both — one of them would be silently ignored")
+        if isinstance(supersplit_fn, SplitEngine):
+            # the engine API replaces supersplit_fn; accept it here too
+            kw["engine"] = supersplit_fn
+            supersplit_fn = None
         tb = self._resolve_tree_batch(ds)
+        if supersplit_fn is not None:
+            warnings.warn(
+                "legacy supersplit_fn closures force the per-tree builder "
+                "(tree_batch=1, one level step per depth PER TREE); pass a "
+                "repro_torch.core.level SplitEngine (engine=...) to keep "
+                "the batched one-step-per-depth path",
+                UserWarning, stacklevel=2)
+            tb = 1                      # per-tree-only configuration
         self.trees, self.level_stats = [], []
         for lo in range(0, self.num_trees, tb):
-            trees, stats = tree_lib.build_forest(
-                tree_indices=range(lo, min(lo + tb, self.num_trees)), **kw)
+            if supersplit_fn is not None:
+                tr, stats = tree_lib.build_tree(
+                    tree_idx=lo, supersplit_fn=supersplit_fn, **kw)
+                trees, stats = [tr], [stats]
+            else:
+                trees, stats = tree_lib.build_forest(
+                    tree_indices=range(lo, min(lo + tb, self.num_trees)),
+                    **kw)
             self.trees.extend(trees)
             self.level_stats.extend(stats)
         self.packed = pack_trees(self.trees, device=dev)

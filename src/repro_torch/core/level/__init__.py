@@ -1,8 +1,8 @@
 """The level data plane: split engines + the per-level plan."""
 from repro_torch.core.level.engines import (CategoricalTable, ExactNumeric,
-                                            LevelInputs, LevelStatics,
-                                            SplitEngine)
+                                            LegacyFn, LevelInputs,
+                                            LevelStatics, SplitEngine)
 from repro_torch.core.level.plan import LevelPlan, make_plan
 
-__all__ = ["CategoricalTable", "ExactNumeric", "LevelInputs", "LevelPlan",
-           "LevelStatics", "SplitEngine", "make_plan"]
+__all__ = ["CategoricalTable", "ExactNumeric", "LegacyFn", "LevelInputs",
+           "LevelPlan", "LevelStatics", "SplitEngine", "make_plan"]

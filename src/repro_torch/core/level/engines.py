@@ -21,7 +21,7 @@ version only for CPU tensors, so on the card no engine bypasses a kernel.
 from __future__ import annotations
 
 import dataclasses
-from typing import NamedTuple
+from typing import Callable, NamedTuple
 
 import torch
 from torch.profiler import record_function
@@ -75,6 +75,7 @@ class LevelInputs(NamedTuple):
     parent_of: torch.Tensor = None    # (T, L+1) parent leaf id at prev level
     sib_of: torch.Tensor = None       # (T, L+1) sibling's current leaf id
     slot_of: torch.Tensor = None      # (T, L+1) packed build slot, 0 = derive
+    bin_edges: torch.Tensor = None    # (m_num, B) float edges (`pass_edges`)
 
 
 class LevelStatics(NamedTuple):
@@ -386,3 +387,45 @@ class CategoricalTable(SplitEngine):
                 num_classes=st.num_classes)
         with record_function("level.cat_breiman"):
             return _score_tables(tables, cand, st)
+
+
+@dataclasses.dataclass(frozen=True, eq=False)   # identity hash, as the
+class LegacyFn(SplitEngine):                    # reference's
+    """Adapter for a bare `supersplit_fn` closure (the pre-SplitEngine
+    API).  Per-tree only: `RandomForest.fit` warns and routes these to
+    `tree.build_tree`, one tree at a time, because an arbitrary closure
+    sees ONE tree's arrays.
+
+    The closure is called in the reference's argument order,
+
+      sorted:  fn(sorted_vals, sorted_idx, leaf_of, w, stats, cand, Lp,
+                  impurity, task, min_records)
+      hist:    fn(bin_of, bin_edges, leaf_of, w, stats, cand, Lp,
+                  impurity, task, min_records)
+
+    with leaf_of and w (n,), stats (n, S) and cand (m_num, Lp+1): the
+    level's leading tree axis (T = 1) is dropped before the call and put
+    back on its (gains, thresholds), each (m_num, Lp+1).  A hist closure
+    gets the float bucket edges and returns float thresholds, so the
+    level evaluates its conditions on the raw columns."""
+    fn: Callable
+    hist: bool = False          # hist-mode signature (bin_of, bin_edges, ...)
+
+    @property
+    def needs_sorted(self) -> bool:
+        return not self.hist
+
+    @property
+    def needs_bins(self) -> bool:       # type: ignore[override]
+        return self.hist
+
+    def supersplits(self, inp, st, Lp, cand):
+        if inp.leaf_of.shape[0] != 1:
+            raise ValueError("a LegacyFn closure scores one tree at a time")
+        rows = (inp.leaf_of[0], inp.w[0], inp.stats[0], cand[0], Lp,
+                st.impurity, st.task, st.min_records)
+        if self.hist:
+            g, thr = self.fn(inp.bin_of, inp.bin_edges, *rows)
+        else:
+            g, thr = self.fn(inp.sorted_vals, inp.sorted_idx, *rows)
+        return g[None], thr[None], None

@@ -118,6 +118,14 @@ class LevelPlan:
             and self.numeric.bin_cut_thresholds
 
     @property
+    def pass_edges(self) -> bool:
+        """The level step hands the float bucket edges to the engine
+        (`LevelInputs.bin_edges`): only legacy hist closures (`LegacyFn`),
+        which score and return float thresholds themselves."""
+        return bool(self.m_num) and self.numeric is not None \
+            and self.numeric.needs_bins and not self.use_bin_cuts
+
+    @property
     def carries_tables(self) -> bool:
         """Histogram subtraction is on: the level loop carries each
         level's per-leaf tables and every level builds only the smaller

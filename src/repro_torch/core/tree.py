@@ -30,7 +30,7 @@ from torch.profiler import record_function
 from repro_torch.core import (bagging, checkpoint as checkpoint_lib,
                               class_list, dataset as dataset_lib, presort,
                               prng, pruning, splits)
-from repro_torch.core.level.engines import LevelInputs, SplitEngine
+from repro_torch.core.level.engines import LegacyFn, LevelInputs, SplitEngine
 from repro_torch.core.level.plan import (_fused_level_step_batched,
                                          _leaf_totals, _pad_leaves,
                                          _stream_chunk_step,
@@ -354,6 +354,9 @@ def _hist_state(num, sorted_vals, params, m_num, bin_of, bin_edges, dev):
 
 # level steps `build_forest` has dispatched (the reference's counter)
 _BATCH_STEP_CALLS = [0]
+# level steps of trees built one at a time with a legacy closure
+# (`build_tree(supersplit_fn=...)`), the reference's per-tree builder count
+_STEP_CALLS = [0]
 
 
 def build_forest(
@@ -365,7 +368,7 @@ def build_forest(
     collect_stats: bool = False,
     engine: Optional[SplitEngine] = None,
     cat_engine: Optional[SplitEngine] = None,
-    bin_of=None, bin_edges=None,
+    bin_of=None, bin_edges=None, _per_tree: bool = False,
 ) -> tuple[list[Tree], list[list[LevelStats]]]:
     """Train a BATCH of trees, one batched level step per depth.
 
@@ -407,6 +410,9 @@ def build_forest(
     step reads its fixed-point scales on the host, so the book overlaps
     only what that step queues after its last read.
 
+    A legacy closure engine (`level.LegacyFn`) is refused: it scores one
+    tree at a time, through `build_tree(supersplit_fn=...)`.
+
     Returns (trees, stats_logs), parallel lists over `tree_indices`.
     """
     _check_params(params)
@@ -419,6 +425,12 @@ def build_forest(
     plan = make_plan(params, m_num=m_num, m_cat=m_cat, max_arity=max_arity,
                      num_classes=num_classes, m_prime=m_prime, engine=engine,
                      cat_engine=cat_engine)
+    legacy = isinstance(plan.numeric, LegacyFn)
+    if legacy and not _per_tree:
+        raise ValueError(
+            "legacy supersplit_fn closures are per-tree only; pass a "
+            "level.SplitEngine (engine=...) or use build_tree")
+    step_calls = _STEP_CALLS if legacy else _BATCH_STEP_CALLS
     task = params.task
     hist = params.split_mode == "hist"
     dev = labels.device
@@ -593,8 +605,10 @@ def build_forest(
                           sorted_idx=sorted_idx, leaf_of=leaf_of, w=w,
                           stats=stats,
                           totals=torch.as_tensor(totals_np, device=dev),
-                          bin_of=bin_of, **maps)
-        _BATCH_STEP_CALLS[0] += 1
+                          bin_of=bin_of,
+                          bin_edges=bin_edges if plan.pass_edges else None,
+                          **maps)
+        step_calls[0] += 1
         struct, leaf_of, next_totals, tables, ord_idx = \
             _fused_level_step_batched(
                 inp, torch.as_tensor(splittable_p, device=dev), fkeys, depth,
@@ -632,10 +646,26 @@ def build_forest(
             stats_logs)
 
 
-def build_tree(*, tree_idx: int, **kw) -> tuple[Tree, list[LevelStats]]:
+def build_tree(*, tree_idx: int, supersplit_fn=None, engine=None,
+               **kw) -> tuple[Tree, list[LevelStats]]:
     """Train ONE tree: a one-tree `build_forest` (same arguments, with
-    `tree_idx` in place of `tree_indices`)."""
-    trees, logs = build_forest(tree_indices=[tree_idx], **kw)
+    `tree_idx` in place of `tree_indices`).
+
+    `supersplit_fn` is the reference's legacy closure API: a bare closure
+    is wrapped in `level.LegacyFn` (the hist signature when
+    `params.split_mode == "hist"`) and its level steps count in
+    `_STEP_CALLS`; a `SplitEngine` passed there is taken as the engine.
+    Passing both it and `engine` raises ValueError."""
+    if supersplit_fn is not None:
+        if engine is not None:
+            raise ValueError(
+                "pass either engine= (a SplitEngine) or supersplit_fn=, "
+                "not both — one of them would be silently ignored")
+        engine = supersplit_fn if isinstance(supersplit_fn, SplitEngine) \
+            else LegacyFn(fn=supersplit_fn,
+                          hist=kw["params"].split_mode == "hist")
+    trees, logs = build_forest(tree_indices=[tree_idx], engine=engine,
+                               _per_tree=True, **kw)
     return trees[0], logs[0]
 
 

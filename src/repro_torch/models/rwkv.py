@@ -27,6 +27,7 @@ import torch
 import torch.nn.functional as F
 
 from repro_torch.models.layers import _dtype, full, normal, uniform
+from repro_torch.train import sharding as shd
 
 LORA_DIM = 64
 
@@ -104,6 +105,48 @@ def timemix(p, x, cfg, state=None, chunk: int = 32):
 
     xx = _shift(x, x_prev)
     r, k, v, g, logw = _mix_inputs(p, x, xx)
+    if shd.is_sharded(r):
+        out, S0 = _wkv_mesh(r, k, v, g, logw, p["u"], p["ln_x"], H, chunk)
+    else:
+        out, S0 = _wkv(r, k, v, g, logw, p["u"], p["ln_x"], S0, H, chunk)
+    out = shd.shard(out.to(p["wo_r"].dtype) @ p["wo_r"],
+                    ("batch", "seq", None))
+    return out.to(x.dtype), (x[:, -1], S0)
+
+
+def _wkv_mesh(r, k, v, g, logw, u, ln_x, H, chunk):
+    """`_wkv` on DTensors: the recurrence is independent per (row, head),
+    so each rank runs it on its own rows and heads as local tensors (the
+    heads stay split where each shard holds whole heads).  Returns (out
+    (B,S,D), the final state (B,H,N,N)), as DTensors."""
+    from torch.distributed.tensor import Shard
+    mesh = r.device_mesh
+    B, S, D = r.shape
+    N = D // H
+    pl = shd.channel_layout(r, N)
+    split = [isinstance(q, Shard) for q in pl]
+    lay = [a.redistribute(mesh, pl) for a in (r, k, v, g, logw)]
+    loc = [shd.to_local_for(a, split) for a in lay]
+    off = shd.local_offset(lay[0])[2]
+    D_loc = loc[0].shape[2]
+    uu, ln = (shd.to_local_for(a, split)[off:off + D_loc]
+              for a in (u, ln_x))
+    H_loc = D_loc // N
+    S0 = torch.zeros(loc[0].shape[0], H_loc, N, N, dtype=torch.float32,
+                     device=loc[0].device)
+    out, S_f = _wkv(*loc, uu, ln, S0, H_loc, chunk)
+    st_pl = tuple(Shard(1) if isinstance(q, Shard) and q.dim else q
+                  for q in pl)
+    return (shd.from_local_like(out, mesh, pl, (B, S, D)),
+            shd.from_local_like(S_f, mesh, st_pl, (B, H, N, N)))
+
+
+def _wkv(r, k, v, g, logw, u, ln_x, S0, H, chunk):
+    """The chunked WKV recurrence of H heads over r, k, v, logw (B,S,D),
+    then the per-head group norm and the gate g: (out (B,S,D), the final
+    state (B,H,N,N))."""
+    B, S, D = r.shape
+    N = D // H
     pad = (-S) % chunk
     if pad:
         r, k, v, logw = (F.pad(a, (0, 0, 0, pad)) for a in (r, k, v, logw))
@@ -114,9 +157,9 @@ def timemix(p, x, cfg, state=None, chunk: int = 32):
         return a.reshape(B, nc, chunk, H, N).float()
 
     rs, ks, vs, lw = resh(r), resh(k), resh(v), resh(logw)
-    u = p["u"].reshape(H, N)
+    u = u.reshape(H, N)
     tri = torch.tril(torch.ones(chunk, chunk, dtype=torch.bool,
-                                device=x.device), diagonal=-1)
+                                device=r.device), diagonal=-1)
     outs = []
     for c in range(nc):
         rc, kc, vc, lwc = rs[:, c], ks[:, c], vs[:, c], lw[:, c]  # (B,c,H,N)
@@ -138,30 +181,61 @@ def timemix(p, x, cfg, state=None, chunk: int = 32):
         S0 = torch.exp(Lend[:, 0])[..., None] * S0 \
             + torch.einsum("bshn,bshm->bhnm", kdec, vc)
     out = torch.stack(outs, dim=1).reshape(B, T, D)[:, :S]
-    out = _group_norm(out, p["ln_x"], H) * g[:, :S].to(x.dtype)
-    out = out.to(p["wo_r"].dtype) @ p["wo_r"]
-    return out.to(x.dtype), (x[:, -1], S0)
+    return _group_norm(out, ln_x, H) * g[:, :S].to(r.dtype), S0
 
 
 def timemix_decode(p, x1, cfg, state):
     """One-token decode.  x1: (B,1,D); state: (x_prev (B,D), S (B,H,N,N))."""
-    B, _, D = x1.shape
-    H, N = cfg.num_heads, D // cfg.num_heads
+    H = cfg.num_heads
     x_prev, S0 = state
     xx = x_prev[:, None]
     r, k, v, g, logw = _mix_inputs(p, x1, xx)
+    if shd.is_sharded(r):
+        out, S1 = _wkv_step_mesh(r, k, v, g, logw, p["u"], p["ln_x"], S0, H)
+    else:
+        out, S1 = _wkv_step(r, k, v, g, logw, p["u"], p["ln_x"], S0, H)
+    out = out.to(p["wo_r"].dtype) @ p["wo_r"]
+    return out.to(x1.dtype), (x1[:, -1], S1)
+
+
+def _wkv_step(r, k, v, g, logw, u, ln_x, S0, H):
+    """One token of the WKV recurrence of H heads, the group norm and the
+    gate: (out (B,1,D), the next state (B,H,N,N))."""
+    B, _, D = r.shape
+    N = D // H
     rh = r.reshape(B, H, N).float()
     kh = k.reshape(B, H, N).float()
     vh = v.reshape(B, H, N).float()
     w = torch.exp(logw.reshape(B, H, N))
-    u = p["u"].reshape(H, N)
+    u = u.reshape(H, N)
     kv = kh[..., :, None] * vh[..., None, :]                    # (B,H,N,N)
     o = torch.einsum("bhn,bhnm->bhm", rh, u[None, :, :, None] * kv + S0)
     S1 = w[..., None] * S0 + kv
     out = o.reshape(B, 1, D)
-    out = _group_norm(out, p["ln_x"], H) * g.to(out.dtype)
-    out = out.to(p["wo_r"].dtype) @ p["wo_r"]
-    return out.to(x1.dtype), (x1[:, -1], S1)
+    return _group_norm(out, ln_x, H) * g.to(out.dtype), S1
+
+
+def _wkv_step_mesh(r, k, v, g, logw, u, ln_x, S0, H):
+    """`_wkv_step` on DTensors, each rank on its own rows and heads (as
+    `_wkv_mesh`); S0 is the cache's (B,H,N,N) DTensor."""
+    from torch.distributed.tensor import Shard
+    mesh = r.device_mesh
+    B, _, D = r.shape
+    N = D // H
+    pl = shd.channel_layout(r, N)
+    split = [isinstance(q, Shard) for q in pl]
+    lay = [a.redistribute(mesh, pl) for a in (r, k, v, g, logw)]
+    loc = [shd.to_local_for(a, split) for a in lay]
+    off = shd.local_offset(lay[0])[2]
+    D_loc = loc[0].shape[2]
+    uu, ln = (shd.to_local_for(a, split)[off:off + D_loc]
+              for a in (u, ln_x))
+    st_pl = tuple(Shard(1) if isinstance(q, Shard) and q.dim else q
+                  for q in pl)
+    out, S1 = _wkv_step(*loc, uu, ln, S0.redistribute(mesh, st_pl).to_local(),
+                        D_loc // N)
+    return (shd.from_local_like(out, mesh, pl, (B, 1, D)),
+            shd.from_local_like(S1, mesh, st_pl, (B, H, N, N)))
 
 
 def channelmix(p, x, cfg, state=None):
@@ -172,7 +246,9 @@ def channelmix(p, x, cfg, state=None):
     xx = _shift(x, x_prev)
     mu = p["mu_c"][:, None, None, :]
     xk, xr = x[None] + (xx - x)[None] * mu
-    kk = xk.to(p["ck"].dtype) @ p["ck"]
-    vv = torch.square(F.relu(kk)) @ p["cv"]
+    kk = shd.shard(xk.to(p["ck"].dtype) @ p["ck"], ("batch", "seq", "ff"))
+    # the row-parallel product's partial sums are reduced before the gate:
+    # a gate times a partial sum would leave partial gradients behind
+    vv = shd.shard(torch.square(F.relu(kk)) @ p["cv"], ("batch", "seq", None))
     rr = torch.sigmoid(xr.to(p["cr"].dtype) @ p["cr"])
     return (rr * vv).to(x.dtype), x[:, -1]

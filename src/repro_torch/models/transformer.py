@@ -30,12 +30,14 @@ import math
 from typing import Optional
 
 import torch
+import torch.nn.functional as F
 from torch import nn
 from torch.utils import checkpoint as ckpt
 
 from repro_torch.device import resolve_device
 from repro_torch.models import layers, mamba as mamba_lib, moe as moe_lib, \
     rwkv as rwkv_lib
+from repro_torch.train import sharding as shd
 
 EXPERT_WEIGHTS = ("we1", "we2", "we3")
 
@@ -146,19 +148,28 @@ class Transformer(nn.Module):
         super().__init__()
         self.cfg = cfg
         self.device = resolve_device(device)
-        self.params = ParamTree(params).to(self.device)
+        self.params = ParamTree(params)
+        if any(p.device != self.device and not shd.is_sharded(p)
+               for p in self.params.parameters()):
+            # (a tree on a mesh was placed by `distribute_tensor`)
+            self.params = self.params.to(self.device)
 
     # -- forward (prefill) --------------------------------------------------
 
     def _embed(self, inputs, positions):
         cfg = self.cfg
         if cfg.input_mode == "tokens":
-            x = self.params["embedding"][inputs]              # (B,S,D) gather
+            emb = shd.gather_fsdp(self.params["embedding"], "embedding")
+            # on a mesh, `embedding` keeps the vocab shards (each rank
+            # looks up its own rows and the partial rows are summed);
+            # DTensor would gather the whole table for an index
+            x = F.embedding(inputs, emb) if shd.is_sharded(emb) \
+                else emb[inputs]                              # (B,S,D) gather
         else:
             x = inputs.to(layers._dtype(cfg))   # precomputed embeddings
         if cfg.pos_style == "sinusoidal":
             x = x + layers.sinusoidal_emb(positions, cfg.d_model).to(x.dtype)
-        return x
+        return shd.shard(x, ("batch", "res_seq", None))
 
     def forward_hidden(self, inputs, positions=None,
                        collect_cache: bool = False, remat: str = "none"):
@@ -174,6 +185,9 @@ class Transformer(nn.Module):
         B, S = inputs.shape[:2]
         if positions is None:
             positions = torch.arange(S, device=self.device)[None].expand(B, S)
+            if shd.is_sharded(inputs):     # laid out as the tokens are
+                positions = shd.distribute(positions, inputs.device_mesh,
+                                           inputs.placements)
         x = self._embed(inputs, positions)
         aux = torch.zeros((), dtype=torch.float32, device=self.device)
         body = functools.partial(self._block, positions=positions,
@@ -207,6 +221,7 @@ class Transformer(nn.Module):
         returns (x, aux, caches, empty unless `collect_cache`)."""
         cfg = self.cfg
         caches = {}
+        bp = shd.gather_fsdp(bp)
         for i, (mix, ffn) in enumerate(cfg.block_pattern):
             pp = bp[f"pos{i}"]
             h = layers.rms_norm(x, pp["norm1"], cfg.norm_eps)
@@ -229,13 +244,17 @@ class Transformer(nn.Module):
             else:  # channelmix
                 f, xcm = rwkv_lib.channelmix(pp["ffn"], h2, cfg)
                 cch["x_cm"] = xcm
-            x = x + f
+            # (the FFN's row-parallel product ends as a partial sum)
+            f = shd.shard(f, ("batch", "seq", None))
+            x = shd.shard(x + f, ("batch", "res_seq", None))
             if collect_cache:
                 caches[f"pos{i}"] = cch
         return x, aux, caches
 
     def project_logits(self, x):
-        return x @ self.params["lm_head"]
+        head = shd.gather_fsdp(self.params["lm_head"], "lm_head")
+        return shd.shard(x @ head,
+                         ("batch", "seq", "vocab"))
 
     def forward(self, inputs, positions=None, collect_cache: bool = False):
         """Returns (logits, aux_loss, caches_or_None)."""
@@ -252,6 +271,7 @@ class Transformer(nn.Module):
         positions = cache_len[:, None]
         x = self._embed(inputs, positions)
         for b, bp in enumerate(self.params["blocks"].unbind()):
+            bp = shd.gather_fsdp(bp)
             for i, (mix, ffn) in enumerate(cfg.block_pattern):
                 pp, cc = bp[f"pos{i}"], caches[f"pos{i}"]
                 h = layers.rms_norm(x, pp["norm1"], cfg.norm_eps)

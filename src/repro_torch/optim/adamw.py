@@ -59,7 +59,9 @@ def map_tree(fn, tree: dict, *rest: dict) -> dict:
 def init_state(params: dict, cfg: AdamWConfig) -> dict:
     """Zero moments shaped as `params` (on their devices) and step 0."""
     dt = moments_torch_dtype(cfg)
-    zeros = lambda p: torch.zeros(p.shape, dtype=dt, device=p.device)
+    # zeros_like: a DTensor parameter gets moments of its own placements
+    zeros = lambda p: torch.zeros_like(p, dtype=dt,
+                                       memory_format=torch.contiguous_format)
     dev = next(leaves(params)).device
     return {"mu": map_tree(zeros, params), "nu": map_tree(zeros, params),
             "step": torch.zeros((), dtype=torch.int32, device=dev)}
@@ -72,6 +74,15 @@ def leaves(tree: dict):
             yield from leaves(v)
         else:
             yield v
+
+
+def _like_param(g, p):
+    """A DTensor gradient laid out as its parameter (sharding propagation
+    may leave it in another layout); a plain tensor as it is."""
+    pl = getattr(p, "placements", None)
+    if pl is None or tuple(g.placements) == tuple(pl):
+        return g
+    return g.redistribute(p.device_mesh, pl)
 
 
 @torch.no_grad()
@@ -94,6 +105,7 @@ def apply_updates(params: dict, grads: dict, state: dict,
         # A float32 leaf (and moment) is updated where it lies; a
         # bfloat16 one through a float32 copy, cast back at the end.
         f32 = torch.float32
+        g = _like_param(g, p)
         g32, m32, v32, p32 = (a.to(f32) for a in (g, m, v, p))
         t = torch.mul(g32, 1 - b1)
         m32.mul_(b1).add_(t)

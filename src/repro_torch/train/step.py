@@ -11,9 +11,12 @@ on the model's device; reading one waits for the step).
     step = make_train_step(cfg, tcfg)
     state, metrics = step(state, {"inputs": ..., "labels": ...})
 
-The reference's sharding rules (`repro.train.sharding`) only matter on a
-mesh; this is one-device training, as `launch/train.py` runs it with
-`mesh=None`.
+On a `DeviceMesh` (`shard_state`), the parameters and both moments are
+DTensors laid out by `train.sharding.tree_param_specs`, the batch is
+sharded by the `batch` rule, and the step runs inside
+`sharding.use_mesh_rules`: the same code, DTensor's sharding propagation
+inserting the collectives.  The metrics are then replicated 0-d
+DTensors (`scalar` reads one).
 """
 from __future__ import annotations
 
@@ -25,6 +28,7 @@ from torch.utils import checkpoint as ckpt
 from repro_torch.device import resolve_device
 from repro_torch.models import transformer
 from repro_torch.optim import adamw
+from repro_torch.train import sharding as shd
 
 
 @dataclasses.dataclass(frozen=True)
@@ -60,9 +64,16 @@ def _ce_chunk(xc, lm_head, lc):
     reference's masked sum adds exact zeros to it, so the two are equal.
     Each gathered position is hit once, so its backward (a scatter-add
     into zeros) has no colliding adds and the same bits on every run."""
-    logits = (xc @ lm_head).to(torch.float32)
+    logits = shd.shard((xc @ lm_head).to(torch.float32),
+                       ("batch", None, "vocab"))
     lse = torch.logsumexp(logits, dim=-1)
-    gold = torch.gather(logits, -1, lc[..., None])[..., 0]
+    if shd.is_sharded(logits):
+        # the reference's masked sum: it needs no gather across the
+        # vocab shards (and adds exact zeros, so it equals the gather)
+        vids = torch.arange(logits.shape[-1], device=lc.device)
+        gold = torch.where(vids == lc[..., None], logits, 0.0).sum(-1)
+    else:
+        gold = torch.gather(logits, -1, lc[..., None])[..., 0]
     return (lse - gold).sum(), torch.square(lse).sum()
 
 
@@ -101,8 +112,8 @@ def make_loss_fn(cfg, tcfg: TrainConfig):
     def loss_fn(model, batch):
         x, aux, _ = model.forward_hidden(batch["inputs"], remat=tcfg.remat)
         loss = chunked_cross_entropy(
-            x, model.params["lm_head"], batch["labels"], tcfg.z_loss_weight,
-            tcfg.ce_chunks)
+            x, shd.gather_fsdp(model.params["lm_head"], "lm_head"),
+            batch["labels"], tcfg.z_loss_weight, tcfg.ce_chunks)
         total = loss + tcfg.aux_loss_weight * aux
         return total, {"ce": loss, "aux": aux}
 
@@ -168,6 +179,45 @@ def train_state(model: transformer.Transformer, tcfg: TrainConfig,
     if opt is None:
         opt = adamw.init_state(model.params.tree(), tcfg.optimizer)
     return {"model": model, "opt": opt}
+
+
+def shard_state(state: dict, mesh, overrides=None) -> dict:
+    """`state` laid out on `mesh`: every parameter and both of its
+    moments distributed by `tree_param_specs` under the rules of
+    `overrides` (each rank keeps its own shards; the full tensors must
+    be equal on every rank, as weights drawn from one seed are)."""
+    model = state["model"]
+    rules = shd.make_rules(mesh, overrides)
+    params = {k: v for k, v in adamw.map_tree(
+        lambda p: p.detach(), model.params.tree()).items()}
+    specs = shd.tree_param_specs(params, mesh, rules)
+    dmodel = transformer.Transformer(
+        model.cfg, shd.distribute_tree(params, specs, mesh),
+        device=model.device)
+    opt = {m: shd.distribute_tree(state["opt"][m], specs, mesh)
+           for m in ("mu", "nu")}
+    opt["step"] = state["opt"]["step"]
+    dmodel.requires_grad_(True)
+    return {"model": dmodel, "opt": opt}
+
+
+def unshard_state(state: dict) -> dict:
+    """A sharded train state gathered into full tensors on every rank
+    (a collective: every rank of the mesh calls it)."""
+    model = state["model"]
+    full = transformer.Transformer(
+        model.cfg, shd.full_tree(adamw.map_tree(
+            lambda p: p.detach(), model.params.tree())),
+        device=model.device)
+    opt = {m: shd.full_tree(state["opt"][m]) for m in ("mu", "nu")}
+    opt["step"] = state["opt"]["step"]
+    full.requires_grad_(True)
+    return {"model": full, "opt": opt}
+
+
+def scalar(x) -> float:
+    """A 0-d metric as a float (a DTensor's full value)."""
+    return float(x.full_tensor() if shd.is_sharded(x) else x)
 
 
 def init_train_state(seed: int, cfg, tcfg: TrainConfig,

@@ -363,3 +363,14 @@ def test_gloo_refusal_is_told_from_other_errors(msg, refused):
     device; any other error of its probe is raised."""
     from repro_torch.launch import mesh
     assert bool(mesh._REFUSAL.search(msg)) == refused
+
+
+def test_distributed_forest_example_through_supersplit_fn(port):
+    """The port's run of `examples/distributed_forest.py`: `fit(ds,
+    supersplit_fn=make_2d_sharded_supersplit(mesh))` on every rank of the
+    (2, 2) mesh, and a bare closure around the engine's legacy signature
+    (the per-tree builder), each equal to the local forest."""
+    for r in port.ranks:
+        ex = r["example"]
+        assert ex["engine"] == ex["local"], r["rank"]
+        assert ex["closure"] == ex["local"], r["rank"]

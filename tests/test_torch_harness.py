@@ -108,8 +108,16 @@ def test_port_modules_never_import_jax_or_reference():
                     "repro_torch.data.synthetic",
                     "repro_torch.optim.adamw",
                     "repro_torch.train.step",
-                    "repro_torch.launch.train"}
+                    "repro_torch.launch.train",
+                    "repro_torch.train.sharding",
+                    "repro_torch.launch.specs",
+                    "repro_torch.launch.roofline",
+                    "repro_torch.launch.dryrun"}
         assert expected <= set(names), sorted(expected - set(names))
+        # importing the dry run starts no process group (its placeholder
+        # world is made when it runs)
+        import torch.distributed as dist
+        assert not dist.is_initialized()
         from repro_torch.configs.base import list_archs
         assert len(list_archs()) == 11, list_archs()
         print(len(names))

@@ -188,6 +188,21 @@ def port(rank, world, store, out):
             _tree_arrays(f"{name}/local", local.trees, arrays)
             _tree_arrays(f"{name}/sharded", sharded.trees, arrays)
 
+        # examples/distributed_forest.py's call, fit(ds, supersplit_fn=sup):
+        # the engine taken as the engine, and a bare closure around its
+        # legacy signature (per tree), both equal to the local forest
+        from repro_torch.data import synthetic
+        ex = synthetic.make_tabular("majority", 4000, num_informative=6,
+                                    num_useless=2, seed=3)
+        exp = tree_lib.TreeParams(max_depth=6, min_records=2)
+        sup = D.make_2d_sharded_supersplit(mesh)
+        res["example"] = {
+            key: _digest(RandomForest(exp, num_trees=3, seed=7,
+                                      device="cpu").fit(ex, **kw).trees)
+            for key, kw in (("local", {}), ("engine", {"supersplit_fn": sup}),
+                            ("closure", {"supersplit_fn":
+                                         lambda *a: sup(*a)}))}
+
         # fit_streamed with the sharded hist engine against in memory
         ds_num = from_numpy(num, None, y)
         bins, edges = ds_num.quantize(_HIST["num_bins"])
