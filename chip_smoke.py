@@ -60,7 +60,9 @@ Phases, each fatal on failure:
      after: the trees must equal phase 5 (b)'s, feat_hist must launch once
      per chunk of every table level, and feat_hist is held bit-equal to
      its plain version on a chunk of the deepest level captured from the
-     fit; walls, per-level walls, host spans and peak device memory; (c)
+     fit; walls, per-level walls and peak device memory (the driver's
+     host parts are the `stream.*` and `level.book` ranges of a
+     `--profile` run); (c)
      `bagging="none"` fits of n/2 and n rows at chunk 2^20, whose peaks
      must differ by less than 64 MiB; (d) the 2^20 fit in a subprocess
      with `checkpoint_dir`, killed by SIGKILL after its third level
@@ -1367,16 +1369,15 @@ def stream_launch_counts(rf, n_rows: int, chunk: int, max_depth: int):
 
 def stream_fit(args, src, params, label, trees=None, capture=False,
                profile_against=None):
-    """One `fit_streamed` of `src` with the launch and chunk-step counters,
-    the host spans and the peak device memory set to 0 just before and
-    read just after.  Fails unless feat_hist launched once per table chunk
+    """One `fit_streamed` of `src` with the launch and chunk-step counters
+    and the peak device memory set to 0 just before and read just
+    after.  Fails unless feat_hist launched once per table chunk
     step and the trees equal `trees` (when given).  With `capture`, keeps
     the inputs of the last `feat_hist` call of the widest table (a chunk
     of the deepest level), as its wrapper receives them.  With
     `profile_against` (an unprofiled wall of the same fit, seconds) the
     fit runs under the profiler (`profiled`)."""
     import torch
-    from repro_torch.core import tree as tree_lib
     from repro_torch.core.forest import RandomForest
     from repro_torch.core.level import plan as plan_lib
     from repro_torch.kernels import feat_hist
@@ -1404,8 +1405,6 @@ def stream_fit(args, src, params, label, trees=None, capture=False,
         torch.cuda.reset_peak_memory_stats()
         feat_hist.launches = 0
         plan_lib._STREAM_CHUNK_CALLS[0] = 0
-        for k in tree_lib.STREAM_SECONDS:
-            tree_lib.STREAM_SECONDS[k] = 0.0
         t0 = time.perf_counter()
         rf = (fit() if profile_against is None
               else profiled(fit, profile_against))
@@ -1415,7 +1414,6 @@ def stream_fit(args, src, params, label, trees=None, capture=False,
         kops.feature_tables = adapter
     launches = feat_hist.launches
     steps = plan_lib._STREAM_CHUNK_CALLS[0]
-    spans = dict(tree_lib.STREAM_SECONDS)
     peak = torch.cuda.max_memory_allocated()
     want_tables, want_steps = stream_launch_counts(rf, src.n,
                                                    src.chunk_size,
@@ -1425,8 +1423,7 @@ def stream_fit(args, src, params, label, trees=None, capture=False,
         f"chunk_size={src.chunk_size}; peak device memory "
         f"{peak / 2**20:.1f} MiB; feat_hist launches {launches} (table "
         f"chunk steps {want_tables}), chunk steps {steps} (expected "
-        f"{want_steps}); host spans, s: "
-        f"{json.dumps({k: round(v, 3) for k, v in spans.items()})}")
+        f"{want_steps})")
     for lv in levels:
         log(f"    level depth={lv['depth']} Lp={lv['Lp']} open={lv['open']} "
             f"rows={lv['rows']}: {lv['s'] * 1e3:.3f} ms")
@@ -1437,7 +1434,7 @@ def stream_fit(args, src, params, label, trees=None, capture=False,
     if trees is not None and not same_trees(rf.trees, trees):
         fail(f"{label}: the streamed trees differ from the in-memory trees")
     info = dict(fit_s=fit_s, peak_bytes=peak, launches=launches,
-                chunk_steps=steps, spans=spans, chunk=src.chunk_size,
+                chunk_steps=steps, chunk=src.chunk_size,
                 n=src.n, levels=[{k: lv[k] for k in ("depth", "Lp", "s")}
                                  for lv in levels])
     return rf, info, captured

@@ -22,6 +22,7 @@ from typing import Optional
 
 import numpy as np
 import torch
+from torch.profiler import record_function
 
 from repro_torch.core import (atomicio, bagging, checkpoint as checkpoint_lib,
                               importance, presort, tree as tree_lib)
@@ -243,68 +244,84 @@ class RandomForest:
         `level.LegacyFn` for its two signatures) warns and builds the trees
         one at a time (`tree_batch = 1`, `tree.build_tree`), since it sees
         one tree's arrays.  The trees are the same either way.  Passing
-        both `supersplit_fn` and `engine` raises ValueError."""
+        both `supersplit_fn` and `engine` raises ValueError.
+
+        The fit runs inside the `record_function` range `fit.forest`, and
+        its own steps in ranges nested there: `fit.copy_in` (the host
+        columns onto the device), `fit.presort`, `fit.quantize` (hist
+        mode), `fit.assemble` (the host trees of each tree batch, in
+        `tree.build_forest`) and `fit.pack` (`pack_trees` and its copy to
+        the device).  `fit_streamed` opens `fit.forest`, `fit.assemble`
+        and `fit.pack` the same way."""
         if isinstance(ds, RowSource):
             raise TypeError(
                 "fit() trains from a fully materialized TabularDataset; "
                 "for a RowSource (out-of-core bin cache) use "
                 "fit_streamed(source)")
-        dev = resolve_device(self.device)
-        ds.validate()
-        self.num_classes = ds.num_classes
-        self.m, self.m_num = ds.m, ds.m_num
-        num_cols = torch.as_tensor(ds.num, device=dev).t().contiguous()
-        cat_cols = torch.as_tensor(ds.cat, device=dev).t().contiguous()
-        labels = torch.as_tensor(ds.labels, device=dev)
-        if ds.m_num:
-            sorted_idx = presort.presort_columns(num_cols.t())
-            sorted_vals = presort.gather_sorted(num_cols.t(), sorted_idx)
-        else:
-            sorted_idx = torch.zeros((0, ds.n), dtype=torch.int32, device=dev)
-            sorted_vals = torch.zeros((0, ds.n), dtype=torch.float32,
-                                      device=dev)
-        kw = dict(num=num_cols.t(), cat=cat_cols.t(), labels=labels,
-                  sorted_vals=sorted_vals, sorted_idx=sorted_idx,
-                  arities=ds.arities, num_classes=ds.num_classes,
-                  params=self.params, seed=self.seed,
-                  collect_stats=collect_stats, engine=engine,
-                  cat_engine=cat_engine)
-        if self.params.split_mode == "hist" and ds.m_num:
-            # hist mode: quantize once per forest (the PLANET-style fixed
-            # bucket budget), shared by every tree and level like the presort
-            bin_of, bin_edges = presort.quantize(num_cols.t(), sorted_vals,
-                                                 self.params.num_bins)
-            kw.update(bin_of=bin_of, bin_edges=bin_edges)
-        if supersplit_fn is not None and engine is not None:
-            raise ValueError(
-                "pass either engine= (a SplitEngine) or supersplit_fn=, "
-                "not both — one of them would be silently ignored")
-        if isinstance(supersplit_fn, SplitEngine):
-            # the engine API replaces supersplit_fn; accept it here too
-            kw["engine"] = supersplit_fn
-            supersplit_fn = None
-        tb = self._resolve_tree_batch(ds)
-        if supersplit_fn is not None:
-            warnings.warn(
-                "legacy supersplit_fn closures force the per-tree builder "
-                "(tree_batch=1, one level step per depth PER TREE); pass a "
-                "repro_torch.core.level SplitEngine (engine=...) to keep "
-                "the batched one-step-per-depth path",
-                UserWarning, stacklevel=2)
-            tb = 1                      # per-tree-only configuration
-        self.trees, self.level_stats = [], []
-        for lo in range(0, self.num_trees, tb):
+        with record_function("fit.forest"):
+            dev = resolve_device(self.device)
+            ds.validate()
+            self.num_classes = ds.num_classes
+            self.m, self.m_num = ds.m, ds.m_num
+            with record_function("fit.copy_in"):
+                num_cols = torch.as_tensor(ds.num, device=dev).t().contiguous()
+                cat_cols = torch.as_tensor(ds.cat, device=dev).t().contiguous()
+                labels = torch.as_tensor(ds.labels, device=dev)
+            with record_function("fit.presort"):
+                if ds.m_num:
+                    sorted_idx = presort.presort_columns(num_cols.t())
+                    sorted_vals = presort.gather_sorted(num_cols.t(),
+                                                        sorted_idx)
+                else:
+                    sorted_idx = torch.zeros((0, ds.n), dtype=torch.int32,
+                                             device=dev)
+                    sorted_vals = torch.zeros((0, ds.n), dtype=torch.float32,
+                                              device=dev)
+            kw = dict(num=num_cols.t(), cat=cat_cols.t(), labels=labels,
+                      sorted_vals=sorted_vals, sorted_idx=sorted_idx,
+                      arities=ds.arities, num_classes=ds.num_classes,
+                      params=self.params, seed=self.seed,
+                      collect_stats=collect_stats, engine=engine,
+                      cat_engine=cat_engine)
+            if self.params.split_mode == "hist" and ds.m_num:
+                # hist mode: quantize once per forest (the PLANET-style
+                # fixed bucket budget), shared by every tree and level like
+                # the presort
+                with record_function("fit.quantize"):
+                    bin_of, bin_edges = presort.quantize(
+                        num_cols.t(), sorted_vals, self.params.num_bins)
+                kw.update(bin_of=bin_of, bin_edges=bin_edges)
+            if supersplit_fn is not None and engine is not None:
+                raise ValueError(
+                    "pass either engine= (a SplitEngine) or supersplit_fn=, "
+                    "not both — one of them would be silently ignored")
+            if isinstance(supersplit_fn, SplitEngine):
+                # the engine API replaces supersplit_fn; accept it here too
+                kw["engine"] = supersplit_fn
+                supersplit_fn = None
+            tb = self._resolve_tree_batch(ds)
             if supersplit_fn is not None:
-                tr, stats = tree_lib.build_tree(
-                    tree_idx=lo, supersplit_fn=supersplit_fn, **kw)
-                trees, stats = [tr], [stats]
-            else:
-                trees, stats = tree_lib.build_forest(
-                    tree_indices=range(lo, min(lo + tb, self.num_trees)),
-                    **kw)
-            self.trees.extend(trees)
-            self.level_stats.extend(stats)
-        self.packed = pack_trees(self.trees, device=dev)
+                warnings.warn(
+                    "legacy supersplit_fn closures force the per-tree "
+                    "builder (tree_batch=1, one level step per depth PER "
+                    "TREE); pass a repro_torch.core.level SplitEngine "
+                    "(engine=...) to keep the batched one-step-per-depth "
+                    "path", UserWarning, stacklevel=2)
+                tb = 1                      # per-tree-only configuration
+            self.trees, self.level_stats = [], []
+            for lo in range(0, self.num_trees, tb):
+                if supersplit_fn is not None:
+                    tr, stats = tree_lib.build_tree(
+                        tree_idx=lo, supersplit_fn=supersplit_fn, **kw)
+                    trees, stats = [tr], [stats]
+                else:
+                    trees, stats = tree_lib.build_forest(
+                        tree_indices=range(lo, min(lo + tb, self.num_trees)),
+                        **kw)
+                self.trees.extend(trees)
+                self.level_stats.extend(stats)
+            with record_function("fit.pack"):
+                self.packed = pack_trees(self.trees, device=dev)
         return self
 
     def fit_streamed(self, source, collect_stats: bool = False,
@@ -334,28 +351,30 @@ class RandomForest:
         if not isinstance(source, RowSource):
             raise TypeError(f"expected a dataset.RowSource, got "
                             f"{type(source).__name__}")
-        dev = resolve_device(self.device)
-        self.num_classes = source.num_classes
-        self.m = self.m_num = source.m_num
-        ck = None
-        if checkpoint_dir is not None:
-            ck = checkpoint_lib.StreamCheckpointer(checkpoint_dir,
-                                                   every=checkpoint_every)
-            ck.prepare(source=source, params=self.params, seed=self.seed,
-                       resume=resume)
-        tb = (max(1, min(int(self.tree_batch), self.num_trees))
-              if self.tree_batch is not None else min(self.num_trees, 16))
-        self.trees, self.level_stats = [], []
-        for lo in range(0, self.num_trees, tb):
-            trees, stats = tree_lib.build_forest_streamed(
-                source=source,
-                tree_indices=range(lo, min(lo + tb, self.num_trees)),
-                params=self.params, seed=self.seed,
-                collect_stats=collect_stats, engine=engine, resume=resume,
-                device=dev, _checkpointer=ck)
-            self.trees.extend(trees)
-            self.level_stats.extend(stats)
-        self.packed = pack_trees(self.trees, device=dev)
+        with record_function("fit.forest"):
+            dev = resolve_device(self.device)
+            self.num_classes = source.num_classes
+            self.m = self.m_num = source.m_num
+            ck = None
+            if checkpoint_dir is not None:
+                ck = checkpoint_lib.StreamCheckpointer(checkpoint_dir,
+                                                       every=checkpoint_every)
+                ck.prepare(source=source, params=self.params, seed=self.seed,
+                           resume=resume)
+            tb = (max(1, min(int(self.tree_batch), self.num_trees))
+                  if self.tree_batch is not None else min(self.num_trees, 16))
+            self.trees, self.level_stats = [], []
+            for lo in range(0, self.num_trees, tb):
+                trees, stats = tree_lib.build_forest_streamed(
+                    source=source,
+                    tree_indices=range(lo, min(lo + tb, self.num_trees)),
+                    params=self.params, seed=self.seed,
+                    collect_stats=collect_stats, engine=engine, resume=resume,
+                    device=dev, _checkpointer=ck)
+                self.trees.extend(trees)
+                self.level_stats.extend(stats)
+            with record_function("fit.pack"):
+                self.packed = pack_trees(self.trees, device=dev)
         return self
 
     def _packed_forest(self, up_to: Optional[int] = None) -> PackedForest:

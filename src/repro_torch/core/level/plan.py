@@ -23,7 +23,12 @@ same candidate draw, condition evaluation, winner and child-id code.
 Each part of a level runs inside a `record_function` range named
 `level.<part>`, so a `torch.profiler` trace (`chip_smoke.py --profile`)
 attributes the level's device time to its parts; outside a profiler the
-ranges cost a few microseconds per level.
+ranges cost a few microseconds per level.  The forest driver names its
+own steps the same way: `fit.forest` around each fit, with `fit.copy_in`,
+`fit.presort`, `fit.quantize`, `fit.bagging`, `fit.prune`, `fit.assemble`
+and `fit.pack` inside it (`core/forest.py`, `core/tree.py`); the streamed
+driver's chunk pass runs in `stream.read`, `stream.stage` and
+`stream.fetch`, and its host bookkeeping in `level.book`.
 """
 from __future__ import annotations
 

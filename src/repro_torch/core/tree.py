@@ -558,7 +558,8 @@ def build_forest(
                 with record_function("level.book"):
                     book(*pending)
                 pending = None
-            write_values(Ls, counts, totals_np)
+            with record_function("level.book"):
+                write_values(Ls, counts, totals_np)
             break
 
         # Sprint pruning (paper §3): drop the rows closed in EVERY tree once
@@ -642,8 +643,9 @@ def build_forest(
     if pending is not None:         # the loop left through max(Ls) == 0
         with record_function("level.book"):
             book(*pending)
-    return ([_assemble_tree(a, max_arity, m_num, task) for a in accs],
-            stats_logs)
+    with record_function("fit.assemble"):
+        trees = [_assemble_tree(a, max_arity, m_num, task) for a in accs]
+    return trees, stats_logs
 
 
 def build_tree(*, tree_idx: int, supersplit_fn=None, engine=None,
@@ -672,16 +674,6 @@ def build_tree(*, tree_idx: int, supersplit_fn=None, engine=None,
 # ---------------------------------------------------------------------------
 # The out-of-core streamed forest driver
 # ---------------------------------------------------------------------------
-
-# Host seconds of the streamed driver's parts, summed over every level of
-# every streamed fit since a caller last set them to 0: "read" (the
-# source's chunk reads), "stage" (filling the staging buffer and starting
-# its copy), "chunk" (launching the chunk steps), "fetch" (waiting for each
-# chunk's leaf ids and writing them back: the device time of the chunk
-# lands here), "score" (finalize, score and the level's host bookkeeping).
-STREAM_SECONDS = dict.fromkeys(("read", "stage", "chunk", "fetch", "score"),
-                               0.0)
-
 
 class _ChunkStage:
     """One level's staging buffer for row chunks of T trees.
@@ -912,7 +904,6 @@ def build_forest_streamed(
                     base_delay=source.retry_base_delay,
                     max_delay=source.retry_max_delay,
                     sleep=source.retry_sleep)
-    spans = STREAM_SECONDS
 
     for depth in range(start_depth, params.max_depth + 1):
         if max(Ls) == 0:
@@ -933,7 +924,6 @@ def build_forest_streamed(
         stage = _ChunkStage(T, m_num, C, params.num_bins, dev)
         for lo in range(0, n_act, C):
             hi = min(lo + C, n_act)
-            t0 = time.perf_counter()
             try:
                 with record_function("stream.read"):
                     block = dataset_lib.read_with_retry(
@@ -944,24 +934,15 @@ def build_forest_streamed(
                 if ck is not None:      # keep the last completed level, so
                     ck.flush()          # that a resume loses only this one
                 raise
-            t1 = time.perf_counter()
             with record_function("stream.stage"):
                 bins_c, labels_c, w_c, leaf_prev_c = stage.load(
                     block, labels_np[lo:hi], w_np[:, lo:hi],
                     leaf_np[:, lo:hi])
-            t2 = time.perf_counter()
             leaf_c, acc = _stream_chunk_step(
                 bins_c, labels_c, w_c, leaf_prev_c, dec, acc, plan=plan,
                 Lp=Lp, root=depth == 0, need_tables=need_tables)
-            t3 = time.perf_counter()
             with record_function("stream.fetch"):
                 leaf_np[:, lo:hi] = stage.fetch(leaf_c, hi - lo)
-            t4 = time.perf_counter()
-            spans["read"] += t1 - t0
-            spans["stage"] += t2 - t1
-            spans["chunk"] += t3 - t2
-            spans["fetch"] += t4 - t3
-        t_score = time.perf_counter()
         del stage
 
         # --- finalize: merged tables and per-leaf totals -----------------
@@ -972,10 +953,11 @@ def build_forest_streamed(
             merged, totals_np = None, acc.cpu().numpy()
         del acc
         counts = totals_np.sum(-1)                        # classification
-        for t in range(T):
-            for h in range(1, Ls[t] + 1):
-                accs[t].set_value(open_nodes[t][h - 1], totals_np[t, h],
-                                  counts[t, h], task)
+        with record_function("level.book"):
+            for t in range(T):
+                for h in range(1, Ls[t] + 1):
+                    accs[t].set_value(open_nodes[t][h - 1], totals_np[t, h],
+                                      counts[t, h], task)
 
         splittable_p = np.zeros((T, Lp + 1), bool)
         if not at_max_depth:
@@ -984,7 +966,6 @@ def build_forest_streamed(
                     splittable_p[t, 1:Ls[t] + 1] = \
                         counts[t, 1:Ls[t] + 1] >= 2 * params.min_records
         if not splittable_p.any():
-            spans["score"] += time.perf_counter() - t_score
             break                       # the node values are written
 
         # --- score: one step on the tables alone -------------------------
@@ -1003,31 +984,32 @@ def build_forest_streamed(
         ws = host["will_split"]
         no_mask = np.zeros((Lp + 1, 1), bool)             # numeric only
         Ls_next = [0] * T
-        for t in range(T):
-            if Ls[t] == 0:
-                continue
-            host_t = {k: host[k][t] for k in
-                      ("best_feat", "best_gain", "thr", "will_split")}
-            host_t["mask"] = no_mask
-            next_open, any_split = _grow_level(
-                accs[t], open_nodes[t], host_t, Ls[t], m_num, depth,
-                edges_np=edges_np)
-            if collect_stats:
-                Lp_t = _pad_leaves(Ls[t], params.leaf_pad)
-                passes = int(min(m_prime * (1 if params.usb else Ls[t]),
-                                 m_num))
-                stats_logs[t].append(LevelStats(
-                    depth=depth, open_leaves=Ls[t],
-                    network_bits_bitmap=int(counts[t, 1:Ls[t] + 1].sum()),
-                    network_bits_supersplit=int(m_num * (Lp_t + 1) * 64),
-                    class_list_bits=class_list.storage_bits(n_act, Ls[t]),
-                    feature_passes=passes, rows_scanned=n_act * passes,
-                    wall_seconds=wall,
-                    hist_table_bytes=m_num * (Lp_t + 1) * params.num_bins
-                    * S_dim * 4))
-            if any_split:
-                open_nodes[t] = next_open
-            Ls_next[t] = 2 * int(ws[t, 1:Ls[t] + 1].sum())
+        with record_function("level.book"):
+            for t in range(T):
+                if Ls[t] == 0:
+                    continue
+                host_t = {k: host[k][t] for k in
+                          ("best_feat", "best_gain", "thr", "will_split")}
+                host_t["mask"] = no_mask
+                next_open, any_split = _grow_level(
+                    accs[t], open_nodes[t], host_t, Ls[t], m_num, depth,
+                    edges_np=edges_np)
+                if collect_stats:
+                    Lp_t = _pad_leaves(Ls[t], params.leaf_pad)
+                    passes = int(min(m_prime * (1 if params.usb else Ls[t]),
+                                     m_num))
+                    stats_logs[t].append(LevelStats(
+                        depth=depth, open_leaves=Ls[t],
+                        network_bits_bitmap=int(counts[t, 1:Ls[t] + 1].sum()),
+                        network_bits_supersplit=int(m_num * (Lp_t + 1) * 64),
+                        class_list_bits=class_list.storage_bits(n_act, Ls[t]),
+                        feature_passes=passes, rows_scanned=n_act * passes,
+                        wall_seconds=wall,
+                        hist_table_bytes=m_num * (Lp_t + 1) * params.num_bins
+                        * S_dim * 4))
+                if any_split:
+                    open_nodes[t] = next_open
+                Ls_next[t] = 2 * int(ws[t, 1:Ls[t] + 1].sum())
         Ls = Ls_next
 
         # --- Sprint pruning on the host: drop rows closed in every tree --
@@ -1050,9 +1032,9 @@ def build_forest_streamed(
                 tidx=tidx, depth=depth, Ls=Ls, leaf_np=leaf_np,
                 active=active, dec=dec, Lpp=Lpp, accs=accs,
                 open_nodes=open_nodes, stats_logs=stats_logs))
-        spans["score"] += time.perf_counter() - t_score
 
-    trees = [_assemble_tree(a, 1, m_num, task) for a in accs]
+    with record_function("fit.assemble"):
+        trees = [_assemble_tree(a, 1, m_num, task) for a in accs]
     if ck is not None:
         ck.finish_batch(tidx, trees, stats_logs)
     return trees, stats_logs
