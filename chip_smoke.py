@@ -14,19 +14,26 @@ Phases, each fatal on failure:
      phases'); cat_hist at n=2^20 (m=8, V in {2, 1000, 10000}, L1 in
      {2, 65}); feat_hist at n=2^20-37 (m=8, uint8 bins with B=255 and
      uint16 with B=1024, W in {2, 65, 257}, slots with zeros,
-     classification and regression); a depth-16 exact fit on 2^18 noisy
+     classification and regression); breiman on cat_hist tables of
+     n=2^20 rows (V in {2, 40, 300, 1000, 10000}, gini and entropy,
+     min_records 0, 1 and 200, every leaf a candidate or about 10 of 82)
+     and on random tables of 5 and 20 classes and of 20,000 and 40,000
+     categories (gains bit-equal, masks equal wherever the gain is finite,
+     the device counter up by the candidates); a depth-16 exact fit on 2^18 noisy
      numeric rows that must reach a padded frontier of 8192 (and grow the
      same trees twice); then every kernel at its main path's shapes with
-     its times (CUDA events, median of several runs); split_scan and
-     cat_hist on the inputs of every level of one tree batch of the exact
-     fit of phase 3, each held against its plain version (bit-equal) and
-     timed; feat_hist on the inputs of every level of one tree batch of
-     fit (b) below;
+     its times (CUDA events, median of several runs); split_scan,
+     cat_hist and breiman on the inputs of every level of one tree batch
+     of the exact fit of phase 3, each held against its plain version
+     (bit-equal) and timed; feat_hist on the inputs of every level of one
+     tree batch of fit (b) below;
   3. train `RandomForest(TreeParams(max_depth=10, backend="kernel"),
      num_trees=4, tree_batch=2)` on 2^23 Leo-shaped rows (3 numeric + 79
      categorical columns, arities log-spaced 2..10,000) made with numpy
      from --seed, with the launch counters set to 0 just before and read
-     just after; a second identical fit must grow identical trees;
+     just after (split_scan, cat_hist and breiman must launch; the share
+     of segments breiman scored is printed); a second identical fit must
+     grow identical trees;
   4. predict 2^20 held-out rows, print the AUC, check a save/load round
      trip, check that small fits on the card (exact, and hist with
      subtraction, classification and regression; entropy on the kernel
@@ -500,6 +507,120 @@ def check_cat_hist(args, dev, g, n, T, m, L1, V, task, timed, inputs=None):
     return row
 
 
+def check_breiman(args, dev, tables, cand, label, timed, impurity="gini",
+                  min_records=1.0, plain_runs=1):
+    """breiman against its plain version on the card: gains bit for bit,
+    masks equal wherever the gain is finite and all-False elsewhere, and
+    the device counter up by the candidate segments.  Timed: the kernel,
+    the plain version and the bound."""
+    import torch
+    from repro_torch.kernels import breiman
+    kw = dict(impurity=impurity, min_records=min_records)
+    scored0 = int(breiman.scored_counter(dev).item())
+    gk, mk = breiman.breiman(tables, cand, **kw)
+    gp, mp = breiman.breiman_plain(tables, cand, **kw)
+    torch.cuda.synchronize()
+    scored = int(breiman.scored_counter(dev).item()) - scored0
+    n_cand = int(cand.sum().item())
+    fin = torch.isfinite(gp)
+    if not torch.equal(gk, gp):
+        both = fin & torch.isfinite(gk)
+        err = (gk[both] - gp[both]).abs().max().item() if both.any() else 0
+        fail(f"breiman {label}: gains not bit-equal (finite masks equal: "
+             f"{torch.equal(torch.isfinite(gk), fin)}, max err {err})")
+    if not torch.equal(mk[fin], mp[fin]) or mk[~fin].any():
+        fail(f"breiman {label}: masks differ where the gain is finite, or "
+             f"a row without a valid cut has a flag")
+    if scored != n_cand:
+        fail(f"breiman {label}: {scored} segments scored, {n_cand} "
+             f"candidates")
+    T, m, L1, V, S = tables.shape
+    row = dict(T=T, m=m, L1=L1, V=V, S=S, impurity=impurity,
+               min_records=min_records, candidates=n_cand,
+               finite=int(fin.sum().item()), bit_equal=True)
+    del gk, mk, gp, mp
+    if timed:
+        row["ms"] = cuda_ms(lambda: breiman.breiman(tables, cand, **kw))
+        row["plain_ms"] = cuda_ms(
+            lambda: breiman.breiman_plain(tables, cand, **kw),
+            runs=plain_runs)
+        row["kernels"] = kernel_split(
+            lambda: breiman.breiman(tables, cand, **kw))
+        row["bound_ms"], row["bound_by"] = bound_ms(
+            breiman.bound_bytes(n_cand, T, m, L1, V, S), 0)
+    torch.cuda.empty_cache()
+    log(f"  breiman {label} {json.dumps(row)}")
+    return row
+
+
+def breiman_checks(args, dev):
+    """breiman on cat_hist tables of random rows: small arities with every
+    leaf a candidate, entropy, min_records 0 (the empty-tail cut) and
+    large, and V = 10,000 with about 10 of 82 columns candidates; then on
+    random tables of 5 and 20 classes and of 20,000 and 40,000
+    categories."""
+    import torch
+    from repro_torch.kernels import cat_hist as ch
+    g = torch.Generator(device=dev)
+    g.manual_seed(args.seed + 3)
+    n = 1 << args.check_log2n
+    for V, L1, share, impurity, min_records in (
+            (2, 65, 1.0, "gini", 1.0), (40, 65, 1.0, "gini", 1.0),
+            (40, 65, 1.0, "entropy", 1.0), (300, 65, 1.0, "gini", 0.0),
+            (300, 65, 1.0, "gini", 200.0), (1000, 513, 1.0, "entropy", 1.0),
+            (10000, 65, 10 / 82, "gini", 1.0)):
+        ins = cat_inputs(g, n, 2, 8, L1, V, "classification", dev)
+        tables = ch.cat_hist(*ins, L1=L1, V=V, num_stats=2)
+        cand = torch.rand((2, 8, L1), generator=g, device=dev) < share
+        cand[..., 0] = False
+        check_breiman(args, dev, tables, cand, f"V={V} L1={L1}", False,
+                      impurity, min_records)
+        del tables, ins
+    # integer class counts up to 4000: many classes (registers up to 16,
+    # the workspace past it) and arities past one block's shared memory
+    for V, S, impurity in ((300, 5, "gini"), (300, 20, "entropy"),
+                           (20000, 2, "gini"), (40000, 2, "entropy"),
+                           (40000, 20, "gini")):
+        top = 4000 if V <= 300 else 3
+        tables = torch.randint(0, top, (2, 4, 17, V, S), generator=g,
+                               device=dev).float()
+        tables *= torch.rand((2, 4, 17, V, 1), generator=g,
+                             device=dev) < 0.5
+        cand = torch.rand((2, 4, 17), generator=g, device=dev) < 0.7
+        check_breiman(args, dev, tables, cand, f"V={V} S={S}", False,
+                      impurity)
+        del tables
+
+
+def breiman_main_shapes(args, dev, ds):
+    """breiman at the shapes of the deepest level of the main path: the Leo
+    columns' tables (real arities padded to V = 10,000) over 2^23 rows in
+    L1 = 513 leaves of 2 trees, about 10 of 82 columns candidates a leaf."""
+    import torch
+    from repro_torch.core import bagging
+    from repro_torch.kernels import cat_hist as ch
+    g = torch.Generator(device=dev)
+    g.manual_seed(args.seed + 2)
+    T, L1, n = TREE_BATCH, 2 ** (args.depth - 1) + 1, ds.n
+    leaf = torch.randint(0, L1, (T, n), generator=g, device=dev,
+                         dtype=torch.int32)
+    w = bagging.bag_counts_forest(args.seed, range(T), n, "poisson", dev)
+    y = torch.as_tensor(ds.labels, device=dev).float()
+    cat_cols = torch.as_tensor(ds.cat, device=dev).t().contiguous()
+    V = max(ds.arities)
+    tables = ch.cat_hist(cat_cols, leaf, w, y, L1=L1, V=V, num_stats=2)
+    del cat_cols, leaf, w, y
+    cand = torch.rand((T, ds.m_cat, L1), generator=g, device=dev) < 10 / 82
+    cand[..., 0] = False
+    r = check_breiman(args, dev, tables, cand, "main-path shapes", True)
+    del tables
+    torch.cuda.empty_cache()
+    return dict(shape={k: r[k] for k in ("T", "m", "L1", "V", "S")},
+                max_abs_err=0.0, library_ms=None,
+                **{k: r[k] for k in ("candidates", "ms", "plain_ms",
+                                     "bound_ms", "bound_by", "kernels")})
+
+
 def feat_inputs(g, n, T, m, W, B, bin_dtype, task, dev):
     """Bin ids of `bin_dtype`, slots in [0, W) (a third of them 0), bag
     weights in {0, 1, 2} and labels."""
@@ -605,6 +726,7 @@ def phase2(args, dev):
     for V in (2, 1000):
         check_cat_hist(args, dev, g, 1 << args.check_log2n, 2, 8, 65, V,
                        "regression", False)
+    breiman_checks(args, dev)
     import torch
     for bin_dtype, B in ((torch.uint8, 255), (torch.uint16, 1024)):
         for W in (2, 65, 257):
@@ -735,19 +857,21 @@ def exact_params(args):
 
 
 def capture_exact_levels(args, ds):
-    """The arguments of every `split_scan` and `cat_hist` call of one tree
-    batch of the exact Leo fit (phase 3), level by level: the fit runs
-    through `RandomForest.fit` with recorders around the port's
-    `ops.split_scan_supersplit` and `ops.categorical_tables` adapters,
-    which keep each level's inputs as the kernels' wrappers receive them
-    (the presorted and categorical columns, labels and bag weights are the
-    same tensors at every level and are kept once)."""
+    """The arguments of every `split_scan`, `cat_hist` and `breiman` call of
+    one tree batch of the exact Leo fit (phase 3), level by level: the fit
+    runs through `RandomForest.fit` with recorders around the port's
+    `ops.split_scan_supersplit`, `ops.categorical_tables` and
+    `ops.breiman_splits` adapters, which keep each level's inputs as the
+    kernels' wrappers receive them (the presorted and categorical columns,
+    labels and bag weights are the same tensors at every level and are kept
+    once; breiman's tables are not kept, being cat_hist's output)."""
     import torch
     from repro_torch.core.forest import RandomForest
     from repro_torch.kernels import ops as kops
     levels = []
     ss_adapter = kops.split_scan_supersplit
     cat_adapter = kops.categorical_tables
+    brm_adapter = kops.breiman_splits
 
     def own(t):                 # a contiguous copy the fit cannot change
         return t.clone(memory_format=torch.contiguous_format)
@@ -777,15 +901,47 @@ def capture_exact_levels(args, ds):
         return cat_adapter(cat_cols, leaf_of, w, labels, V=V, Lp=Lp,
                            task=task, num_classes=num_classes)
 
+    def record_brm(tables, cand, impurity="gini", min_records=1.0):
+        levels[-1]["brm"] = dict(cand=own(cand), kw=dict(
+            impurity=impurity, min_records=min_records))
+        return brm_adapter(tables, cand, impurity, min_records)
+
     kops.split_scan_supersplit = record_ss
     kops.categorical_tables = record_cat
+    kops.breiman_splits = record_brm
     try:
         RandomForest(exact_params(args), num_trees=TREE_BATCH,
                      seed=args.seed, tree_batch=TREE_BATCH).fit(ds)
     finally:
         kops.split_scan_supersplit = ss_adapter
         kops.categorical_tables = cat_adapter
+        kops.breiman_splits = brm_adapter
     return levels
+
+
+def breiman_levels(args, dev, levels):
+    """breiman on every captured level of one tree batch of the exact Leo
+    fit (its tables rebuilt by cat_hist from the level's inputs): held
+    against its plain version and timed, with the plain version's time.
+    Returns the per-level rows and the sums."""
+    import torch
+    from repro_torch.kernels import cat_hist as ch
+    rows = []
+    for depth, lv in enumerate(levels):
+        tables = ch.cat_hist(*lv["cat"]["ins"], **lv["cat"]["kw"])
+        r = check_breiman(args, dev, tables, lv["brm"]["cand"],
+                          f"exact fit level {depth}", True,
+                          **lv["brm"]["kw"])
+        del tables
+        torch.cuda.empty_cache()
+        rows.append(dict(depth=depth, **{k: r[k] for k in (
+            "L1", "candidates", "finite", "ms", "plain_ms", "bound_ms")}))
+    out = {k: sum(r[k] for r in rows) for k in ("ms", "plain_ms",
+                                                "bound_ms")}
+    log(f"  breiman over the {len(rows)} levels of one tree batch of the "
+        f"exact fit (bit-equal at each): {out['ms']:.3f} ms, plain "
+        f"{out['plain_ms']:.3f} ms, bound {out['bound_ms']:.3f} ms")
+    return dict(levels=rows, **out)
 
 
 def kernel_split(fn, runs: int = 3) -> dict:
@@ -864,6 +1020,8 @@ def exact_main_levels(args, dev, ds):
         rows.append(r)
     out = {k: sum(r[k] for r in rows) for k in ("split_scan_ms",
                                                 "cat_hist_ms")}
+    brm = breiman_levels(args, dev, levels)
+    out["breiman_ms"], out["breiman_plain_ms"] = brm["ms"], brm["plain_ms"]
     log(f"  over the {len(rows)} levels of one tree batch of the exact fit "
         f"(bit-equal at each): split_scan {out['split_scan_ms']:.3f} ms, "
         f"cat_hist {out['cat_hist_ms']:.3f} ms; deepest level "
@@ -1045,6 +1203,7 @@ def phase2_main_shapes(args, dev, ds):
                                                  "bound_by", "library_ms")})
     del cat_cols, leaf, w, y
     torch.cuda.empty_cache()
+    rows["breiman"] = breiman_main_shapes(args, dev, ds)
     return rows
 
 
@@ -1160,11 +1319,25 @@ def run_fit(args, ds, params, kernels, label, idle=None, num_trees=TREES):
 
 
 def phase3(args, dev, ds):
+    """The exact Leo fit (and its repeat): split_scan, cat_hist and breiman
+    must launch; the share of (tree, column, leaf) segments breiman scored
+    (candidates) of those it was launched over is logged."""
     from repro_torch.core import tree as tree_lib
-    from repro_torch.kernels import cat_hist, split_scan
+    from repro_torch.kernels import breiman, cat_hist, split_scan
     params = tree_lib.TreeParams(max_depth=args.depth, backend="kernel")
-    return run_fit(args, ds, params, {"split_scan": split_scan,
-                                      "cat_hist": cat_hist}, "exact")
+    scored0 = int(breiman.scored_counter(dev).item())
+    segments0 = breiman.segments
+    out = run_fit(args, ds, params, {"split_scan": split_scan,
+                                     "cat_hist": cat_hist,
+                                     "breiman": breiman}, "exact")
+    scored = int(breiman.scored_counter(dev).item()) - scored0
+    segments = breiman.segments - segments0
+    out[1]["breiman_engagement"] = dict(scored=scored, segments=segments,
+                                        share=scored / max(segments, 1))
+    log(f"  breiman over the exact fit and its repeat: {scored} candidate "
+        f"segments scored of {segments} launched over "
+        f"({100 * scored / max(segments, 1):.2f}%)")
+    return out
 
 
 def phase5(args, dev, leo_train, leo_test, maj_train, maj_test):
@@ -1172,11 +1345,11 @@ def phase5(args, dev, leo_train, leo_test, maj_train, maj_test):
     (b) the majority family.  An exact fit of the majority rows, once,
     is the point of comparison for (b) and for phase 6 (b)."""
     from repro_torch.core import tree as tree_lib
-    from repro_torch.kernels import cat_hist, feat_hist, split_scan
+    from repro_torch.kernels import breiman, cat_hist, feat_hist, split_scan
     params = hist_params(args)
     rf_a, info_a = run_fit(args, leo_train, params,
-                           {"feat_hist": feat_hist, "cat_hist": cat_hist},
-                           "hist (a) Leo")
+                           {"feat_hist": feat_hist, "cat_hist": cat_hist,
+                            "breiman": breiman}, "hist (a) Leo")
     info_a["auc"] = rf_a.auc(leo_test)
     log(f"  hist (a) held-out AUC {info_a['auc']:.6f}")
     if not info_a["auc"] > 0.6:
@@ -1225,13 +1398,14 @@ def phase6(args, dev, leo_train, maj_train, leo_exact_trees, maj_exact):
     from repro_torch.core import bagging, presort, tree as tree_lib
     from repro_torch.core.dataset import from_numpy
     from repro_torch.core.reference import build_tree_reference
-    from repro_torch.kernels import cat_hist, feat_hist, split_scan
+    from repro_torch.kernels import breiman, cat_hist, feat_hist, split_scan
     t_phase = time.perf_counter()
     out = {}
+    leo_kernels = {"cat_hist": cat_hist, "breiman": breiman}
 
     # (a) TreeParams defaults but the depth: the segment backend on Leo
     params = tree_lib.TreeParams(max_depth=args.depth)
-    rf_a, out["a"] = run_fit(args, leo_train, params, {"cat_hist": cat_hist},
+    rf_a, out["a"] = run_fit(args, leo_train, params, leo_kernels,
                              "default (a) Leo",
                              idle={"split_scan": split_scan})
     if not same_trees(rf_a.trees, leo_exact_trees):
@@ -1267,9 +1441,9 @@ def phase6(args, dev, leo_train, maj_train, leo_exact_trees, maj_exact):
     # rows close, so rows closed in both trees of the batch pile up by
     # depth 7-8; pruned fits must equal the unpruned ones
     for label, extra, kern in (
-            ("exact segment", {}, {"cat_hist": cat_hist}),
+            ("exact segment", {}, leo_kernels),
             ("hist", dict(split_mode="hist", num_bins=HIST_BINS),
-             {"feat_hist": feat_hist, "cat_hist": cat_hist})):
+             {"feat_hist": feat_hist, **leo_kernels})):
         fits = {}
         for frac in (1.0, PRUNE_FRAC):
             p = tree_lib.TreeParams(max_depth=args.depth,
@@ -1313,7 +1487,7 @@ def phase6(args, dev, leo_train, maj_train, leo_exact_trees, maj_exact):
         f"{float((w_cpu == 0).float().mean()):.6f}")
     del w_dev, w_cpu
     _, out["d"] = run_fit(args, leo_train, tree_lib.TreeParams(
-        max_depth=args.depth, bagging="multinomial"), {"cat_hist": cat_hist},
+        max_depth=args.depth, bagging="multinomial"), leo_kernels,
         "(d) multinomial Leo", idle={"split_scan": split_scan})
 
     # (e) the seed builder on the card, one tree of a 2^18-row Leo slice
@@ -1840,7 +2014,7 @@ def phase8(args, dev, train, test):
     from repro_torch.core.dataset import from_numpy
     from repro_torch.core.forest import binary_auc
     from repro_torch.core.gbt import GBTModel, GBTParams
-    from repro_torch.kernels import cat_hist, feat_hist, split_scan
+    from repro_torch.kernels import breiman, cat_hist, feat_hist, split_scan
     t_phase = time.perf_counter()
     out = {"fits": {}}
     reg_train = from_numpy(train.num, train.cat, regression_target(train),
@@ -1858,7 +2032,7 @@ def phase8(args, dev, train, test):
         ("(d) squared", reg_train, GBTParams(loss="squared"),
          {"cat_hist": cat_hist}))
     every = {"split_scan": split_scan, "cat_hist": cat_hist,
-             "feat_hist": feat_hist}
+             "feat_hist": feat_hist, "breiman": breiman}
     model_a = None
     for label, ds, params, kern in fits:
         idle = {k: v for k, v in every.items() if k not in kern}
@@ -2209,7 +2383,7 @@ def dist_worker(args) -> int:
     from repro_torch.core import presort, tree as tree_lib
     from repro_torch.core.dataset import ArrayRowSource, from_numpy
     from repro_torch.core.forest import RandomForest
-    from repro_torch.kernels import cat_hist, feat_hist, split_scan
+    from repro_torch.kernels import breiman, cat_hist, feat_hist, split_scan
     from repro_torch.launch.mesh import make_mesh
     rank, world, store = (int(args.dist_worker[0]), int(args.dist_worker[1]),
                           args.dist_worker[2])
@@ -2218,7 +2392,7 @@ def dist_worker(args) -> int:
     dist.init_process_group("gloo", store=dist.FileStore(store, world),
                             rank=rank, world_size=world)
     kernels = {"cat_hist": cat_hist, "feat_hist": feat_hist,
-               "split_scan": split_scan}
+               "split_scan": split_scan, "breiman": breiman}
     cut = 1 << args.train_log2n
     n_all = cut + TEST_ROWS
     out = {"rank": rank, "fits": {}}
@@ -2437,6 +2611,10 @@ def phase10(args, dev, maj_train, refs):
             if kern and f["launches"][kern] != f["steps"]:
                 fail(f"phase 10 {label}: rank {r} launched {kern} "
                      f"{f['launches'][kern]} times in {f['steps']} levels")
+            if f["launches"]["breiman"] != (f["steps"] if key == "a" else 0):
+                fail(f"phase 10 {label}: rank {r} launched breiman "
+                     f"{f['launches']['breiman']} times in {f['steps']} "
+                     f"levels")
             if key == "d" and f["launches"]["feat_hist"] != \
                     f["table_chunk_steps"]:
                 fail(f"phase 10 {label}: rank {r} launched feat_hist "
@@ -2900,7 +3078,7 @@ def phase11(args, dev) -> dict:
     from repro_torch.configs.base import get_arch
     from repro_torch.core.dataset import from_numpy
     from repro_torch.core.tree import TreeParams
-    from repro_torch.kernels import cat_hist, feat_hist, split_scan
+    from repro_torch.kernels import breiman, cat_hist, feat_hist, split_scan
     from repro_torch.models import moe, transformer
     t_phase = time.perf_counter()
     out = {"a": lm_phase_a(args, dev)}
@@ -3016,7 +3194,8 @@ def phase11(args, dev) -> dict:
     rf, fit = run_fit(args, train, TreeParams(max_depth=10,
                                               backend="kernel"),
                       {"split_scan": split_scan}, "(e) LM-feature forest",
-                      idle={"cat_hist": cat_hist, "feat_hist": feat_hist})
+                      idle={"cat_hist": cat_hist, "feat_hist": feat_hist,
+                            "breiman": breiman})
     auc = rf.auc(test)
     out["e"] = dict(rows=n, seq=S, embed_s=embed_s, auc=auc,
                     positives=float(y.mean()),
@@ -3330,14 +3509,14 @@ def phase12(args, dev) -> dict:
     from repro_torch.checkpoint import io
     from repro_torch.configs.base import get_arch
     from repro_torch.data.synthetic import TokenStream
-    from repro_torch.kernels import cat_hist, feat_hist, split_scan
+    from repro_torch.kernels import breiman, cat_hist, feat_hist, split_scan
     from repro_torch.launch import train as launch_train
     from repro_torch.models import moe
     from repro_torch.optim import adamw
     from repro_torch.train import step as tstep
     t_phase = time.perf_counter()
     kernels = {"split_scan": split_scan, "cat_hist": cat_hist,
-               "feat_hist": feat_hist}
+               "feat_hist": feat_hist, "breiman": breiman}
     for mod in kernels.values():
         mod.launches = 0
     smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
@@ -3549,10 +3728,10 @@ def legacy_fits(args, dev, leo, maj) -> dict:
     from repro_torch.core import tree as tree_lib
     from repro_torch.core.forest import RandomForest
     from repro_torch.core.level.plan import _leaf_totals
-    from repro_torch.kernels import cat_hist, feat_hist, split_scan
+    from repro_torch.kernels import breiman, cat_hist, feat_hist, split_scan
     from repro_torch.kernels import ops as kops
     kernels = {"split_scan": split_scan, "cat_hist": cat_hist,
-               "feat_hist": feat_hist}
+               "feat_hist": feat_hist, "breiman": breiman}
     out = {}
     seen = {}
 
@@ -3624,7 +3803,7 @@ def legacy_fits(args, dev, leo, maj) -> dict:
         a, b = tree_digest(plain.trees), tree_digest(rf.trees)
         if a != b:
             fail(f"13 (a) {label}: closure trees {b} != engine trees {a}")
-        want = ("split_scan", "cat_hist") if label == "sorted" \
+        want = ("split_scan", "cat_hist", "breiman") if label == "sorted" \
             else ("feat_hist",)
         if any(launches[k] <= 0 for k in want):
             fail(f"13 (a) {label}: a kernel of the path never launched: "
@@ -3743,7 +3922,7 @@ def lm_mesh_worker(args) -> int:
     import torch.distributed as dist
     from repro_torch.configs.base import get_arch
     from repro_torch.data.synthetic import TokenStream
-    from repro_torch.kernels import cat_hist, feat_hist, split_scan
+    from repro_torch.kernels import breiman, cat_hist, feat_hist, split_scan
     from repro_torch.launch import mesh as mesh_lib
     from repro_torch.launch import roofline
     from repro_torch.launch import train as launch_train
@@ -3756,7 +3935,7 @@ def lm_mesh_worker(args) -> int:
     dist.init_process_group("gloo", store=dist.FileStore(store, world),
                             rank=rank, world_size=world)
     kernels = {"split_scan": split_scan, "cat_hist": cat_hist,
-               "feat_hist": feat_hist}
+               "feat_hist": feat_hist, "breiman": breiman}
     for mod in kernels.values():
         mod.launches = 0
     out = {"rank": rank, "gloo_cuda": lm_mesh_probe(dev)}
@@ -4496,7 +4675,7 @@ def main() -> int:
     log("phase 10: sharded training across ranks on the card")
     dist_info = phase10(args, dev, maj_train, refs)
     del maj_test
-    sharded = {"cat_hist": "a", "feat_hist": "b"}
+    sharded = {"cat_hist": "a", "feat_hist": "b", "breiman": "a"}
 
     log("phase 11: LM serving on the card")
     lm_info = phase11(args, dev)
@@ -4515,10 +4694,14 @@ def main() -> int:
                "cat_hist": ("src/repro_torch/csrc/cat_hist.cu",
                             "src/repro/kernels/cat_hist.py:64", fit_info),
                "feat_hist": ("src/repro_torch/csrc/feat_hist.cu",
-                             "src/repro/kernels/feat_hist.py:83", hist_b)}
+                             "src/repro/kernels/feat_hist.py:83", hist_b),
+               "breiman": ("src/repro_torch/csrc/breiman.cu",
+                           "none (plain best_categorical_split_from_table, "
+                           "src/repro/core/splits.py)", fit_info)}
     levels_ms = {"split_scan": exact_levels["split_scan_ms"],
                  "cat_hist": exact_levels["cat_hist_ms"],
-                 "feat_hist": main_rows["feat_hist"]["levels_ms"]}
+                 "feat_hist": main_rows["feat_hist"]["levels_ms"],
+                 "breiman": exact_levels["breiman_ms"]}
     for name, (source, replaces, run) in sources.items():
         r = main_rows[name]
         kernels.append(dict(

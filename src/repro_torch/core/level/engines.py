@@ -27,12 +27,10 @@ import torch
 from torch.profiler import record_function
 
 from repro_torch.core import splits
+from repro_torch.kernels import breiman
 from repro_torch.kernels import ops as kops
 from repro_torch.kernels import split_scan
 
-# Breiman scoring runs over column chunks whose count tables stay below
-# this many float32 elements, bounding the sort/cumsum temporaries.
-_SCORE_CHUNK_ELEMS = 1 << 27
 # The segment scorers run over column chunks of at most this many
 # (column, row, stat) elements.
 _SEGMENT_CHUNK_ELEMS = 1 << 26
@@ -351,30 +349,24 @@ class HistNumeric(SplitEngine):
 
 
 def _score_tables(tables, cand, st):
-    """Breiman scoring of (T, m, L+1, V, S) tables, in column chunks."""
-    T, m, L1, V, S = tables.shape
-    per_col = max(1, T * L1 * V * S)
-    step = max(1, _SCORE_CHUNK_ELEMS // per_col)
-    gains = torch.empty((T, m, L1), dtype=torch.float32,
-                        device=tables.device)
-    masks = torch.empty((T, m, L1, V), dtype=torch.bool,
-                        device=tables.device)
-    for j0 in range(0, m, step):
-        j1 = min(m, j0 + step)
-        g, mk = splits.best_categorical_split_from_table(
-            tables[:, j0:j1], cand[:, j0:j1], st.impurity, st.task,
-            st.min_records)
-        gains[:, j0:j1] = g
-        masks[:, j0:j1] = mk
-    return gains, masks
+    """Breiman scoring of (T, m, L+1, V, S) tables: classification through
+    the `breiman` kernel wrapper (its plain version on CPU tensors);
+    regression's float64 prefix sums keep their sequential order in the
+    plain version on every device."""
+    if st.task == "classification":
+        return kops.breiman_splits(tables, cand, st.impurity, st.min_records)
+    return breiman.breiman_plain(tables, cand, impurity=st.impurity,
+                                 task=st.task, min_records=st.min_records)
 
 
 @dataclasses.dataclass(frozen=True)
 class CategoricalTable(SplitEngine):
     """Exact categorical search from (leaf × category × stat) count tables
-    + Breiman ordering.  The tables come from the `cat_hist` kernel (its
-    plain version, `splits.categorical_count_tables`, on CPU tensors);
-    `backend` is the reference's label and picks no path here."""
+    + Breiman ordering.  The tables come from the `cat_hist` kernel and
+    classification tables are scored by the `breiman` kernel (their plain
+    versions, `splits.categorical_count_tables` and
+    `splits.best_categorical_split_from_table`, on CPU tensors); `backend`
+    is the reference's label and picks no path here."""
     backend: str = "kernel"
 
     kind = "categorical"

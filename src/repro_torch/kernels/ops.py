@@ -12,7 +12,7 @@ from __future__ import annotations
 
 import torch
 
-from repro_torch.kernels import cat_hist, feat_hist, split_scan
+from repro_torch.kernels import breiman, cat_hist, feat_hist, split_scan
 
 
 def stat_dim(num_classes: int, task: str) -> int:
@@ -70,3 +70,11 @@ def feature_tables(bin_of, slots, w, labels, *, B, W,
         w.contiguous(), labels.to(torch.float32).contiguous(), W=W, B=B,
         num_stats=stat_dim(num_classes, task), task=task, scales=scales,
         fixed=fixed)
+
+
+def breiman_splits(tables, cand, impurity="gini", min_records=1.0):
+    """The best Breiman split per (tree, column, leaf) of classification
+    count tables (T, m_cat, L1, V, S), through the `breiman` kernel: gains
+    (T, m_cat, L1) and left-masks (T, m_cat, L1, V); cand (T, m_cat, L1)."""
+    return breiman.breiman(tables.contiguous(), cand.contiguous(),
+                           impurity=impurity, min_records=min_records)
