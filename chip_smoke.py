@@ -378,9 +378,10 @@ def level_totals(leaf, w, y, L1, S, task):
     stats = splits.row_stats(y, w, S, task)
     inb = (w > 0) & (leaf > 0)
     flat = leaf.long() + torch.arange(T, device=leaf.device)[:, None] * L1
-    tot = torch.zeros((T * L1, S), device=leaf.device)
-    tot.index_add_(0, flat.reshape(-1),
-                   torch.where(inb[..., None], stats, 0.0).reshape(T * n, S))
+    dt = torch.int32 if task == "classification" else torch.float32
+    tot = torch.zeros((T * L1, S), dtype=dt, device=leaf.device)
+    tot.index_add_(0, flat.reshape(-1), torch.where(
+        inb[..., None], stats, 0.0).to(dt).reshape(T * n, S))
     return tot.reshape(T, L1, S)
 
 
@@ -583,7 +584,7 @@ def breiman_checks(args, dev):
                            (40000, 20, "gini")):
         top = 4000 if V <= 300 else 3
         tables = torch.randint(0, top, (2, 4, 17, V, S), generator=g,
-                               device=dev).float()
+                               device=dev, dtype=torch.int32)
         tables *= torch.rand((2, 4, 17, V, 1), generator=g,
                              device=dev) < 0.5
         cand = torch.rand((2, 4, 17), generator=g, device=dev) < 0.7
@@ -1337,6 +1338,11 @@ def phase3(args, dev, ds):
     log(f"  breiman over the exact fit and its repeat: {scored} candidate "
         f"segments scored of {segments} launched over "
         f"({100 * scored / max(segments, 1):.2f}%)")
+    root = [lv[0].max_class_weight for lv in out[0].level_stats]
+    out[1]["root_max_class_weight"] = root
+    log(f"  largest class weight at the root (LevelStats.max_class_weight), "
+        f"per tree: {root}, {max(root) / 2**24:.4f} x 2^24 (int32 counts "
+        f"are exact to 2^31)")
     return out
 
 

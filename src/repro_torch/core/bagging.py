@@ -44,7 +44,8 @@ def bag_counts_forest(seed, tree_indices, n: int, mode: str = "poisson",
     if mode == "none":
         return torch.ones((len(tidx), n), dtype=torch.float32, device=device)
     if mode == "multinomial":
-        # the counts are integers, so the float32 cast is exact below 2^24
+        # a row's count is a small integer (far below 2^24), so the
+        # float32 cast is exact; the sums over rows are taken in int32
         keys = prng.fold_in(_base_key(seed, device)[None, :], tidx)
         draws = prng.randint(keys, (n,), 0, n)                # (T, n)
         T = len(tidx)

@@ -105,6 +105,9 @@ class SplitEngine:
                                 # evaluated on the bin cache
     carries_tables: bool = False  # True: its tables can seed the next
                                 # level's subtraction (st.subtract)
+    exact_counts: bool = False  # True: it sums classification counts as
+                                # integers (exact to 2^31); else in float32,
+                                # exact only below 2^24 (`plan.count_limit`)
 
     def supersplits(self, inp: LevelInputs, st: LevelStatics, Lp: int,
                     cand: torch.Tensor):
@@ -123,8 +126,9 @@ class SplitEngine:
     # `stream_accumulate` adds one row chunk (once per chunk) and
     # `stream_finalize` turns the accumulator into the (T, m_num, L+1, B, S)
     # tables the scorer reads (once per level).  Classification tables hold
-    # integer-valued float32 counts, so the chunked sum equals one pass
-    # whatever the chunk boundaries.
+    # integer-valued float32 counts, exact below 2^24 (a tree's in-bag
+    # weight is held there, `plan.count_limit`), so the chunked sum equals
+    # one pass whatever the chunk boundaries.
 
     supports_stream: bool = False
 
@@ -219,8 +223,14 @@ class ExactNumeric(SplitEngine):
     leaf; its prefix sums, cummax and segment reductions are plain
     PyTorch on any device.  "kernel" runs the `split_scan` kernel (its
     plain version on CPU tensors); "scan" the plain Alg. 1 recurrence.
+    Every backend reads the level's int32 class totals; `kernel` and
+    `scan` keep int32 prefixes, `segment` float64 ones: the left and right
+    counts are exact, and each is rounded to float32 once, for the gains,
+    so the three give the same trees at any row count.
     """
     backend: str = "segment"
+
+    exact_counts = True
 
     @property
     def uses_ord(self) -> bool:
@@ -366,10 +376,12 @@ class CategoricalTable(SplitEngine):
     classification tables are scored by the `breiman` kernel (their plain
     versions, `splits.categorical_count_tables` and
     `splits.best_categorical_split_from_table`, on CPU tensors); `backend`
-    is the reference's label and picks no path here."""
+    is the reference's label and picks no path here.  Classification
+    tables are int32 class counts, exact to 2^31."""
     backend: str = "kernel"
 
     kind = "categorical"
+    exact_counts = True
 
     def supersplits(self, inp, st, Lp, cand):
         with record_function("level.cat_tables"):

@@ -45,6 +45,29 @@ from repro_torch.core.level.engines import (CategoricalTable, ExactNumeric,
                                             LevelStatics, SplitEngine)
 from repro_torch.kernels.cat_hist import power_of_two_scales
 
+FLOAT_COUNTS = 1 << 24     # float32 holds every integer below this
+INT_COUNTS = 1 << 31       # int32 counts hold every integer below this
+
+
+def check_in_bag_weight(weights, limit: int, what: str) -> None:
+    """Raise ValueError where a tree's in-bag weight (`weights`, one number
+    a tree) reaches `limit`, the count below which `what`'s class counts
+    are exact: a larger tree would get rounded counts and no error."""
+    big = max((float(x) for x in weights), default=0.0)
+    if big < limit:
+        return
+    if limit <= FLOAT_COUNTS:
+        raise ValueError(
+            f"{what} counts classes in float32, exact only below 2^24, but "
+            f"a tree of this fit holds an in-bag weight of {big:.0f}: use "
+            f"split_mode='exact' with the local engines, which count in "
+            f"int32 (ROADMAP.md, Queue N1), or fewer rows a fit")
+    raise ValueError(
+        f"{what} counts classes in int32, exact only below 2^31, but a tree "
+        f"of this fit holds an in-bag weight of {big:.0f}: use fewer rows a "
+        f"fit")
+
+
 def _pad_leaves(L: int, pad: int) -> int:
     """Pad to a power of two (at least `pad`)."""
     return max(pad, 1 << (L - 1).bit_length())
@@ -53,12 +76,15 @@ def _pad_leaves(L: int, pad: int) -> int:
 def _leaf_totals(leaf_of, stats, w, Lp, task="classification"):
     """Per-tree per-leaf in-bag stat totals (T, Lp+1, S), one flat scatter.
 
-    Classification stats are integer counts, so float `index_add_` is exact
-    in any order.  Regression stats are floats, and CUDA's atomic order
-    changes their sums from run to run; they are summed in 64-bit fixed
-    point instead (one power-of-two scale per stat channel, as `cat_hist`
-    does), which is exact and associative, so the totals are the same bits
-    on every run and on every device.
+    Classification stats are integer bag counts: they are summed as int32,
+    exact in any order up to 2^31 (a tree's in-bag weight; float32 would
+    be exact only below 2^24), and the totals stay int32 for the scorers,
+    which convert them to float only where they compute gains.
+    Regression stats are floats, and CUDA's atomic order changes their
+    sums from run to run; they are summed in 64-bit fixed point instead
+    (one power-of-two scale per stat channel, as `cat_hist` does), which
+    is exact and associative, so the totals are the same bits on every run
+    and on every device.
     """
     T, n = leaf_of.shape
     L1 = Lp + 1
@@ -67,12 +93,13 @@ def _leaf_totals(leaf_of, stats, w, Lp, task="classification"):
     flat = (leaf_of.long()
             + torch.arange(T, device=leaf_of.device)[:, None] * L1
             ).reshape(-1)
-    contrib = torch.where(inb[..., None], stats, 0.0).reshape(T * n, S)
     if task == "classification":
-        out = torch.zeros((T * L1, S), dtype=torch.float32,
+        contrib = stats.to(torch.int32).masked_fill_(~inb[..., None], 0)
+        out = torch.zeros((T * L1, S), dtype=torch.int32,
                           device=stats.device)
-        out.index_add_(0, flat, contrib)
+        out.index_add_(0, flat, contrib.reshape(T * n, S))
         return out.reshape(T, L1, S)
+    contrib = torch.where(inb[..., None], stats, 0.0).reshape(T * n, S)
     scale = torch.tensor(power_of_two_scales(
         contrib.abs().amax(0).tolist(), n), dtype=torch.float64,
         device=stats.device)
@@ -136,11 +163,31 @@ class LevelPlan:
         level's per-leaf tables and every level builds only the smaller
         child of each split, deriving its sibling as parent − sibling.
         Classification only: its table entries are integer-valued bag
-        counts, so the subtraction is exact (bit-equal to a plain
+        counts (float32, exact below 2^24: `count_limit`), so the
+        subtraction is exact (bit-equal to a plain
         rebuild); regression tables hold float sums, so regression always
         rebuilds."""
         return self.use_bin_cuts and self.numeric.carries_tables \
             and self.hist_subtract and self.task == "classification"
+
+    @property
+    def count_limit(self) -> int:
+        """The in-bag weight below which a tree's classification counts are
+        exact: 2^31 where every engine sums them as integers (the level's
+        int32 totals, `exact_counts`), else 2^24 (float32 tables)."""
+        engines = [e for e in (self.numeric, self.categorical)
+                   if e is not None]
+        return (INT_COUNTS if all(e.exact_counts for e in engines)
+                else FLOAT_COUNTS)
+
+    def check_counts(self, weights) -> None:
+        """`check_in_bag_weight` for this plan (classification only)."""
+        if self.task != "classification":
+            return
+        inexact = [type(e).__name__ for e in (self.numeric, self.categorical)
+                   if e is not None and not e.exact_counts]
+        check_in_bag_weight(weights, self.count_limit,
+                            " and ".join(inexact) or "the level step")
 
     @property
     def row_shards(self) -> int:
@@ -485,9 +532,11 @@ def _fused_level_step_batched(inp: LevelInputs, splittable_p, fkeys, depth,
 #                          and the in-memory level's `_winners`, on the
 #                          (T, m, L+1, B, S) tables alone.
 #
-# Classification tables are integer-valued float32 counts, so the chunked
-# sum equals the one-pass table, and everything after the tables is the
-# in-memory path's own code: streamed fits grow the in-memory trees.
+# Classification tables are integer-valued float32 counts, exact while a
+# tree's in-bag weight stays below 2^24 (the driver refuses a larger one),
+# so the chunked sum equals the one-pass table, and everything after the
+# tables is the in-memory path's own code: streamed fits grow the
+# in-memory trees.
 
 # chunk steps run (both kinds: table chunks and last-level totals chunks)
 _STREAM_CHUNK_CALLS = [0]
@@ -532,8 +581,9 @@ def _stream_chunk_step(bins_c, labels_c, w_c, leaf_prev_c, dec, acc, *,
 def _stream_finalize_step(acc, *, plan: LevelPlan):
     """(merged (T, m, L+1, B, S) tables, totals (T, L+1, S)).  The totals
     are column 0's table summed over its bins: every in-bag row lands in
-    exactly one bin, so for integer-valued classification counts this is
-    the per-row sum bit for bit (under a mesh engine, the first of the
+    exactly one bin, so for integer-valued classification counts (exact
+    below 2^24, where the driver holds a tree) this is the per-row sum
+    bit for bit (under a mesh engine, the first of the
     rank's own columns, which gives the same sums)."""
     merged = plan.numeric.stream_finalize(acc)
     return merged, merged[:, 0].sum(2)

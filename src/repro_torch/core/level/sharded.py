@@ -30,8 +30,11 @@ fixed point with scales picked from the rows they are given.  Row shards
 therefore share the scales of the whole row set (the global n and an
 all-reduce max of the shards' magnitudes), add their int64 sums over
 `data`, and convert once, which gives the one-device table bit for bit.
-Classification tables are integer counts in float32 and are reduced as
-floats.
+Classification category tables are int32 class counts, as the local
+engine's, and hist tables float32 counts; each is reduced as it is.  The
+hist tables and the exact engine's float32 prefixes are exact only below
+2^24, so a mesh fit refuses a tree whose in-bag weight reaches it
+(`LevelPlan.count_limit`: no mesh engine sets `exact_counts`).
 
 An engine needs a `Mesh`: without one, or for column or row counts that
 its axes do not divide, it raises (`shard_map` refuses those shapes).

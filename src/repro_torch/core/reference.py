@@ -22,8 +22,9 @@ import torch
 from repro_torch.core import bagging, class_list, prng, splits
 from repro_torch.core.level.engines import (ExactNumeric, LevelInputs,
                                             LevelStatics)
-from repro_torch.core.level.plan import (_eval_conditions_core, _leaf_totals,
-                                         _pad_leaves)
+from repro_torch.core.level.plan import (INT_COUNTS, _eval_conditions_core,
+                                         _leaf_totals, _pad_leaves,
+                                         check_in_bag_weight)
 from repro_torch.core.tree import (LevelStats, Tree, _assemble_tree,
                                    _NodeAccum, _num_candidates)
 
@@ -55,6 +56,9 @@ def build_tree_reference(
 
     w = bagging.bag_counts(seed, tree_idx, n, params.bagging, dev)
     stats = splits.row_stats(labels, w, num_classes, task)
+    if task == "classification":    # int32 totals and tables: exact to 2^31
+        check_in_bag_weight([w.sum(dtype=torch.float64)], INT_COUNTS,
+                            "build_tree_reference")
     cnt = splits.count_fn(task)
     fkey = prng.fold_in(prng.prng_key(seed ^ 0x5EED, dev), tree_idx)
     num_cols = num.t().contiguous() if m_num else torch.zeros(
@@ -113,9 +117,11 @@ def build_tree_reference(
                                          cand_p[None, :m_num])
             all_gains[:m_num] = g[0].cpu().numpy()
             all_thr[:m_num] = t[0].cpu().numpy()
+        cat_stats = stats.to(torch.int32) if task == "classification" \
+            else stats
         for j in range(m_cat):
             g, mask = splits.best_categorical_split(
-                cat_cols[j], leaf_of, w, stats, cand_p[m_num + j], Lp,
+                cat_cols[j], leaf_of, w, cat_stats, cand_p[m_num + j], Lp,
                 max_arity, params.impurity, task, params.min_records)
             all_gains[m_num + j] = g.cpu().numpy()
             all_masks[j] = mask.cpu().numpy()

@@ -47,6 +47,14 @@ def row_stats(labels: torch.Tensor, weights: torch.Tensor, num_classes: int,
     return torch.stack([w, w * y, w * y * y], dim=-1)
 
 
+def as_float(h: torch.Tensor) -> torch.Tensor:
+    """Stats as float32 for the impurity expressions: integer class counts
+    (int32 sums, exact to 2^31) are converted where gains are computed,
+    once each; below 2^24 the conversion is exact, so the gains are those
+    of float32 counts."""
+    return h if h.is_floating_point() else h.to(torch.float32)
+
+
 def count_fn(task: str) -> Callable[[torch.Tensor], torch.Tensor]:
     if task == "classification":
         return lambda h: h.sum(-1)
@@ -73,6 +81,9 @@ def weighted_impurity(h: torch.Tensor, impurity: str) -> torch.Tensor:
 
 def split_gain(left: torch.Tensor, right: torch.Tensor,
                impurity: str) -> torch.Tensor:
+    """imp(parent) − imp(left) − imp(right), parent = left + right, all in
+    float32 (integer counts are converted first, `as_float`)."""
+    left, right = as_float(left), as_float(right)
     parent = left + right
     return (weighted_impurity(parent, impurity)
             - weighted_impurity(left, impurity)
@@ -97,6 +108,9 @@ def scan_supersplit(vals, leaf, w, stats, cand, totals, impurity="gini",
     vals/leaf/w (..., n) in per-column presorted order; stats (..., n, S);
     cand (..., L1) bool (leaf 0 = False); totals (..., L1, S) per-leaf stat
     totals.  Returns (best_gain, best_threshold), each (..., L1).
+    Classification prefixes are int32 class counts (the stats are integer
+    bag counts), exact to 2^31 and converted to float32 for the gains
+    only; regression's are float32.
 
     `h_init` (..., L1, S) and `v_init` (..., L1) resume the scan where an
     earlier row shard of the presorted order left it: each leaf's stat
@@ -113,6 +127,7 @@ def scan_supersplit(vals, leaf, w, stats, cand, totals, impurity="gini",
     wins ties.  Classification stats are integer-valued, so the prefixes —
     and the gains — are bit-equal to the sequential scan's.
     """
+    acc_dt = torch.int32 if task == "classification" else torch.float32
     lead = vals.shape[:-1]
     n = vals.shape[-1]
     L1, S = cand.shape[-1], stats.shape[-1]
@@ -121,14 +136,14 @@ def scan_supersplit(vals, leaf, w, stats, cand, totals, impurity="gini",
     vals = vals.reshape(B, n)
     leaf = leaf.reshape(B, n).long()
     w = w.reshape(B, n)
-    stats = stats.reshape(B, n, S)
+    stats = stats.reshape(B, n, S).to(acc_dt)
     cand = cand.reshape(B, L1)
-    totals = totals.reshape(B, L1, S)
+    totals = totals.reshape(B, L1, S).to(acc_dt)
     cnt = count_fn(task)
 
     active = (leaf > 0) & (w > 0) & torch.gather(cand, 1, leaf)
-    H = (torch.zeros((B, L1, S), dtype=torch.float32, device=dev)
-         if h_init is None else h_init.reshape(B, L1, S).to(torch.float32))
+    H = (torch.zeros((B, L1, S), dtype=acc_dt, device=dev)
+         if h_init is None else h_init.reshape(B, L1, S).to(acc_dt))
     v = (torch.full((B, L1), NEG, dtype=torch.float32, device=dev)
          if v_init is None else _none_to_neg(v_init.reshape(B, L1)))
     best_s = torch.full((B, L1), NEG, dtype=torch.float32, device=dev)
@@ -141,11 +156,11 @@ def scan_supersplit(vals, leaf, w, stats, cand, totals, impurity="gini",
         r1 = min(n, r0 + block)
         b = r1 - r0
         a, h, act = vals[:, r0:r1], leaf[:, r0:r1], active[:, r0:r1]
-        st = torch.where(act[..., None], stats[:, r0:r1], 0.0)    # (B, b, S)
+        st = torch.where(act[..., None], stats[:, r0:r1], 0)      # (B, b, S)
         in_leaf = h[..., None] == lanes                            # (B, b, L1)
         oh_act = in_leaf & act[..., None]
-        contrib = torch.where(oh_act[..., None], st[:, :, None, :], 0.0)
-        local_excl = contrib.cumsum(1) - contrib                   # (B,b,L1,S)
+        contrib = torch.where(oh_act[..., None], st[:, :, None, :], 0)
+        local_excl = contrib.cumsum(1, dtype=acc_dt) - contrib     # (B,b,L1,S)
         left_full = H[:, None] + local_excl
         left = torch.gather(left_full, 2,
                             h[:, :, None, None].expand(B, b, 1, S))[:, :, 0]
@@ -173,7 +188,7 @@ def scan_supersplit(vals, leaf, w, stats, cand, totals, impurity="gini",
         best_s = torch.where(better, blk_best, best_s)
         best_t = torch.where(better, blk_thr, best_t)
 
-        H = H + contrib.sum(1)
+        H = H + contrib.sum(1, dtype=acc_dt)
         v = torch.maximum(v, mv.max(1).values)
     return best_s.reshape(lead + (L1,)), best_t.reshape(lead + (L1,))
 
@@ -201,8 +216,10 @@ def best_numeric_split_scan(
         if h_init is not None:
             raise ValueError("a row-sharded call must pass GLOBAL totals")
         contrib = torch.where((w_sorted > 0)[:, None], stats_sorted, 0.0)
+        if task == "classification":        # integer counts, exact to 2^31
+            contrib = contrib.to(torch.int32)
         totals = torch.zeros((L1, stats_sorted.shape[-1]),
-                             dtype=torch.float32, device=vals_sorted.device)
+                             dtype=contrib.dtype, device=vals_sorted.device)
         totals.index_add_(0, leaf_sorted.long(), contrib)
     return scan_supersplit(vals_sorted, leaf_sorted, w_sorted, stats_sorted,
                            cand_leaf, totals, impurity, task, min_records,
@@ -286,9 +303,13 @@ def _score_leaf_blocks(vals, lf, inbag, stats, cand, start_idx, end_idx,
     Prefix sums run in float64, one 1-D scan per stat, and are cast:
     classification stats are integer bag counts, exact below 2^53 (in
     float32 they would be exact only below 2^24), and regression sums
-    carry float64's rounding, not float32's.  `h_init` (B, L+1, S) and
-    `v_init` (B, L+1) resume a row shard (`best_numeric_split_segment`):
-    the prefix is added in float64 before the cast.
+    carry float64's rounding, not float32's.  Classification takes the
+    right counts as parent − left in float64 and rounds left and right
+    once each, as the `split_scan` kernel and the plain scan do, so every
+    exact backend scores the same float32 counts at any row count.
+    `h_init` (B, L+1, S) and `v_init` (B, L+1) resume a row shard
+    (`best_numeric_split_segment`): the prefix is added in float64 before
+    the cast.
     """
     B, n = vals.shape
     S = stats.shape[-1]
@@ -304,18 +325,23 @@ def _score_leaf_blocks(vals, lf, inbag, stats, cand, start_idx, end_idx,
         hi = h_init.double().permute(2, 0, 1)            # (S, B, L+1)
         left = left + torch.gather(hi, 2, lf.long().expand(B, n).expand(
             S, B, n))
-    left = left.to(torch.float32)
     if totals is None:
         eidx = end_idx.expand(B, n).expand(S, B, n)
-        parent = (torch.gather(cum_excl, 2, eidx) + torch.gather(acc, 2, eidx)
-                  - torch.gather(cum_excl, 2, sidx)).to(torch.float32)
-        parent = parent.permute(1, 2, 0)
+        parent = torch.gather(cum_excl, 2, eidx)
+        parent += torch.gather(acc, 2, eidx)
+        parent -= torch.gather(cum_excl, 2, sidx)
+        parent = parent.permute(1, 2, 0)                 # (B, n, S) float64
     else:
         parent = torch.gather(totals, 1,
                               lf.long()[..., None].expand(*lf.shape, S))
     del acc, cum_excl
     left = left.permute(1, 2, 0)                         # (B, n, S) view
-    right = parent - left
+    if task == "classification":    # exact counts, each rounded once
+        right = (parent.double() - left).to(torch.float32)
+        left = left.to(torch.float32)
+    else:
+        left = left.to(torch.float32)
+        right = parent.to(torch.float32) - left
     pv = _segmented_cummax_exclusive(vals, inbag, start_idx)
     if v_init is not None:      # the earlier row shards' last in-bag value
         pv = torch.maximum(pv, torch.gather(_none_to_neg(v_init), 1,
@@ -439,9 +465,10 @@ def _prefix_cuts(table, task):
     totals are the last prefix.  Regression's float stats accumulate in
     float64 in that order (as the CPU's float32 `cumsum` already does;
     CUDA's accumulates in float32), so every device rounds them alike;
-    class counts are exact in any order."""
+    class counts are exact in any order (int32 counts to 2^31, float32
+    ones below 2^24)."""
     prefix = (table.double().cumsum(-2).to(table.dtype)
-              if task == "regression" else table.cumsum(-2))
+              if task == "regression" else table.cumsum(-2, dtype=table.dtype))
     left = prefix[..., :-1, :]
     return left, prefix[..., -1:, :] - left
 
@@ -549,6 +576,8 @@ def best_categorical_split_from_table(table, cand_leaf, impurity="gini",
     category order, as the reference's `jnp.argsort` does); only the V−1
     ordered prefix cuts are scored and the first best cut wins.  Returns
     (best_gain (..., L+1), mask (..., L+1, V) bool), mask True = LEFT.
+    Integer tables (int32 class counts) are summed as integers; the
+    metric and the gains convert each sum to float32 once.
     """
     arity = table.shape[-2]
     cnt = count_fn(task)
@@ -559,7 +588,7 @@ def best_categorical_split_from_table(table, cand_leaf, impurity="gini",
                             device=table.device))
     tc = cnt(table)                                         # (..., L+1, V)
     col = -1 if task == "classification" else 1
-    metric = table[..., col] / tc.clamp(min=1e-12)
+    metric = as_float(table[..., col]) / as_float(tc).clamp(min=1e-12)
     metric = torch.where(tc > 0, metric, float("inf"))
     order = torch.argsort(metric, dim=-1, stable=True)
     sorted_table = torch.gather(

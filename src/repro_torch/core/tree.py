@@ -76,7 +76,8 @@ class Tree:
     cat_mask: np.ndarray       # (N, max_arity) bool; True -> go LEFT
     children: np.ndarray       # (N, 2) int32 [left, right]
     value: np.ndarray          # (N, C) class distribution / (N, 1) mean
-    n_node: np.ndarray         # (N,) in-bag weight reaching the node
+    n_node: np.ndarray         # (N,) float64 in-bag weight reaching the node
+                               # (exact: integer class counts past 2^24)
     gain: np.ndarray           # (N,) split gain (0 for leaves)
     depth: np.ndarray          # (N,) int32
     m_num: int
@@ -100,12 +101,14 @@ class Tree:
         return self.num_leaves / float(2 ** d) if d else 1.0
 
     def sample_density(self) -> float:
-        """Paper §5: the share of in-bag weight reaching depth-D leaves."""
+        """Paper §5: the share of in-bag weight reaching depth-D leaves
+        (summed in float32, as the reference sums its float32 weights)."""
         d = self.max_depth_reached
         leaves = self.feature < 0
         bottom = leaves & (self.depth == d)
-        tot = self.n_node[leaves].sum()
-        return float(self.n_node[bottom].sum() / tot) if tot > 0 else 0.0
+        n_node = self.n_node.astype(np.float32)
+        tot = n_node[leaves].sum()
+        return float(n_node[bottom].sum() / tot) if tot > 0 else 0.0
 
     def predict_raw(self, num, cat, device=None) -> torch.Tensor:
         """(B, C) distributions / (B, 1) means."""
@@ -135,6 +138,11 @@ class LevelStats:
     # under subtraction only the packed build slots (width Lp//2+1 instead
     # of Lp+1) are built
     hist_table_bytes: int = 0
+    # classification: the largest class weight of one open leaf of the
+    # level (at the root, the largest class's in-bag weight), read from the
+    # totals the host already holds: how far past 2^24 (float32's exact
+    # integers) the level's counts ran
+    max_class_weight: int = 0
 
 
 # ---------------------------------------------------------------------------
@@ -255,7 +263,7 @@ def _assemble_tree(acc: _NodeAccum, max_arity, m_num, task) -> Tree:
         cat_mask=cat_mask_arr,
         children=np.asarray(acc.children, np.int32),
         value=np.stack(acc.value).astype(np.float32),
-        n_node=np.asarray(acc.n_node, np.float32),
+        n_node=np.asarray(acc.n_node, np.float64),
         gain=np.asarray(acc.gain, np.float32),
         depth=np.asarray(acc.depth, np.int32),
         m_num=m_num, task=task)
@@ -466,6 +474,10 @@ def build_forest(
     def cnt_np(t):
         return t.sum(-1) if task == "classification" else t[..., 0]
 
+    def max_class(totals_d, t, L):
+        return int(totals_d[t, 1:L + 1].max()) \
+            if task == "classification" and L else 0
+
     accs = [_NodeAccum(num_classes, task) for _ in range(T)]
     open_nodes = [[a.new_node(0)] for a in accs]  # per tree: leaf h -> node
     leaf_of = torch.ones((T, n), dtype=torch.int32, device=dev)
@@ -505,7 +517,8 @@ def build_forest(
                     feature_passes=passes, rows_scanned=n_d * passes,
                     wall_seconds=wall_d,
                     hist_table_bytes=(m_num * tbl_w * params.num_bins
-                                      * S_dim * 4 if hist else 0)))
+                                      * S_dim * 4 if hist else 0),
+                    max_class_weight=max_class(totals_d, t, L)))
             if any_split:
                 open_nodes[t] = next_open
 
@@ -521,14 +534,18 @@ def build_forest(
             break
         Lp = _pad_leaves(max(Ls), params.leaf_pad)   # batch-max frontier
 
-        # carry the leaf totals into the new padding (root: compute once)
+        # carry the leaf totals into the new padding (root: compute once,
+        # and refuse a tree whose in-bag weight the counts cannot hold)
         if totals_np is None:
             totals_np = _leaf_totals(leaf_of, stats, w, Lp,
                                      task).cpu().numpy()
+            if task == "classification":
+                # integer weights: a float64 sum is exact to 2^53
+                plan.check_counts(w.sum(1, dtype=torch.float64).tolist())
             row_counts_np = np.zeros((T, Lp + 1), np.int64)
             row_counts_np[:, 1] = n
         else:
-            cur = np.zeros((T, Lp + 1, totals_np.shape[-1]), np.float32)
+            cur = np.zeros((T, Lp + 1, totals_np.shape[-1]), totals_np.dtype)
             k = min(Lp + 1, totals_np.shape[1])
             cur[:, :k] = totals_np[:, :k]
             totals_np = cur
@@ -861,6 +878,7 @@ def build_forest_streamed(
             for i, t in enumerate(tidx):
                 w_np[i] = bagging.bag_counts(seed, t, n, params.bagging,
                                              dev).cpu().numpy()
+    plan.check_counts(w_np.sum(1, dtype=np.float64))
     fkeys = _forest_keys(seed, tidx, dev)
 
     accs = [_NodeAccum(num_classes, task) for _ in range(T)]
@@ -1006,7 +1024,8 @@ def build_forest_streamed(
                         feature_passes=passes, rows_scanned=n_act * passes,
                         wall_seconds=wall,
                         hist_table_bytes=m_num * (Lp_t + 1) * params.num_bins
-                        * S_dim * 4))
+                        * S_dim * 4,
+                        max_class_weight=int(totals_np[t, 1:Ls[t] + 1].max())))
                 if any_split:
                     open_nodes[t] = next_open
                 Ls_next[t] = 2 * int(ws[t, 1:Ls[t] + 1].sum())

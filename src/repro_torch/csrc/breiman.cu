@@ -5,8 +5,9 @@
 // jnp (`best_categorical_split_from_table` in src/repro/core/splits.py),
 // and so did the port, as torch ops over the whole padded table.  For every
 // (tree t, column j, leaf h) segment of a (T, m, L1, V, S) classification
-// table it orders the categories by P(last class | v) (empty ones last, a
-// stable order: equal metrics keep category order), scores the V - 1
+// table of int32 class counts it orders the categories by P(last class |
+// v) (empty ones last, a stable order: equal metrics keep category
+// order), scores the V - 1
 // ordered prefix cuts (both sides >= min_records) and keeps the first best
 // cut: the gain, and the row of V flags of the categories left of it.
 //
@@ -35,8 +36,11 @@
 //     a block scan gives each run its prefix, and the thread scores its
 //     cuts; a block reduction keeps the first best cut;
 //   - the row of flags is built in shared memory and stored whole.
-// Class counts are integers below 2^24, so every count sum is exact in
-// any order.  The empty categories sort last, in category order, so the
+// Class counts are int32 and every count sum is taken in int32, exact in
+// any order up to 2^31; a sum is converted to float32 once, where the
+// metric or a gain is computed (the plain version converts the same
+// sums), so below 2^24 the gains are those of float32 counts.  The empty
+// categories sort last, in category order, so the
 // cuts in that tail all score as the cut after the last category that
 // holds rows: only the first max(k, 1) - 1 cuts and that one are scored
 // (never past V - 1).  The gains are the plain version's bits: the
@@ -149,8 +153,8 @@ __device__ __forceinline__ float tsum(F f, int S) {
 
 // f(0) + ... + f(S - 1) in class order (class counts: exact in any order).
 template <int C, class F>
-__device__ __forceinline__ float count(F f, int S) {
-  float n = 0.0f;
+__device__ __forceinline__ auto count(F f, int S) {
+  decltype(f(0)) n = 0;
   if constexpr (C > 0) {
 #pragma unroll
     for (int s = 0; s < C; ++s)
@@ -182,51 +186,55 @@ __device__ __forceinline__ float impurity(F f, int S, int kind) {
   return -(n * acc);
 }
 
-// A thread's class vectors: the left side of its current cut and the
-// segment's totals.  C > 0: registers.  C == 0: the block's workspace,
-// left class s at l[s * THREADS], total s at t[s].
+// A thread's class vectors (int32 counts): the left side of its current
+// cut and the segment's totals.  C > 0: registers.  C == 0: the block's
+// workspace, left class s at l[s * THREADS], total s at t[s].
 template <int C>
 struct Cls {
-  float l[C], t[C];
-  __device__ __forceinline__ float& left(int s) { return l[s]; }
-  __device__ __forceinline__ float tot(int s) const { return t[s]; }
+  int l[C], t[C];
+  __device__ __forceinline__ int& left(int s) { return l[s]; }
+  __device__ __forceinline__ int tot(int s) const { return t[s]; }
 };
 template <>
 struct Cls<0> {
-  float* l;
-  const float* t;
-  __device__ __forceinline__ float& left(int s) {
+  int* l;
+  const int* t;
+  __device__ __forceinline__ int& left(int s) {
     return l[(size_t)s * THREADS];
   }
-  __device__ __forceinline__ float tot(int s) const { return t[s]; }
+  __device__ __forceinline__ int tot(int s) const { return t[s]; }
 };
 
 // The gain of the cut whose left side is `v`'s left, or -inf where a
-// side holds fewer than min_records rows (`split_gain`'s operations).
+// side holds fewer than min_records rows (`split_gain`'s operations on
+// the left and right counts, each converted to float32 once).
 template <int C, class V>
 __device__ __forceinline__ float cut_gain(V& v, int S, int kind,
                                           float min_records) {
-  auto L = [&](int s) { return v.left(s); };
-  auto R = [&](int s) { return v.tot(s) - v.left(s); };
-  auto P = [&](int s) { return v.left(s) + (v.tot(s) - v.left(s)); };
-  if (!(count<C>(L, S) >= min_records && count<C>(R, S) >= min_records))
+  auto L = [&](int s) { return (float)v.left(s); };
+  auto R = [&](int s) { return (float)(v.tot(s) - v.left(s)); };
+  auto P = [&](int s) { return L(s) + R(s); };
+  auto Li = [&](int s) { return v.left(s); };
+  auto Ri = [&](int s) { return v.tot(s) - v.left(s); };
+  if (!((float)count<C>(Li, S) >= min_records &&
+        (float)count<C>(Ri, S) >= min_records))
     return -CUDART_INF_F;
   return impurity<C>(P, S, kind) - impurity<C>(L, S, kind)
       - impurity<C>(R, S, kind);
 }
 
-// Category v's counts of the segment's row `tab` (V x S floats): their
+// Category v's counts of the segment's row `tab` (V x S ints): their
 // total and the last class's.
 template <int C>
-__device__ __forceinline__ void held(const float* __restrict__ tab, int v,
-                                     int S, float& total, float& last) {
+__device__ __forceinline__ void held(const int* __restrict__ tab, int v,
+                                     int S, int& total, int& last) {
   if constexpr (C == 2) {
-    const float2 c = reinterpret_cast<const float2*>(tab)[v];
+    const int2 c = reinterpret_cast<const int2*>(tab)[v];
     total = c.x + c.y;
     last = c.y;
   } else {
-    const float* r = tab + (size_t)v * S;
-    total = 0.0f;
+    const int* r = tab + (size_t)v * S;
+    total = 0;
     for (int s = 0; s < S; ++s) total += r[s];
     last = r[S - 1];
   }
@@ -234,14 +242,14 @@ __device__ __forceinline__ void held(const float* __restrict__ tab, int v,
 
 // Add category v's counts to the thread's left vector.
 template <int C, class V>
-__device__ __forceinline__ void add_counts(const float* __restrict__ tab,
+__device__ __forceinline__ void add_counts(const int* __restrict__ tab,
                                            int v, int S, V& cv) {
   if constexpr (C == 2) {
-    const float2 c = reinterpret_cast<const float2*>(tab)[v];
+    const int2 c = reinterpret_cast<const int2*>(tab)[v];
     cv.left(0) += c.x;
     cv.left(1) += c.y;
   } else {
-    const float* r = tab + (size_t)v * S;
+    const int* r = tab + (size_t)v * S;
     if constexpr (C > 0) {
 #pragma unroll
       for (int s = 0; s < C; ++s)
@@ -283,7 +291,7 @@ __device__ __forceinline__ void better(float& g, int& p, float g2, int p2) {
 }
 
 struct Scratch {
-  float part[WARPS][CH];     // per-warp count sums, then their prefixes
+  int part[WARPS][CH];       // per-warp count sums, then their prefixes
   float best_g[WARPS];
   int best_p[WARPS];
   int k;                     // categories holding rows
@@ -293,16 +301,16 @@ struct Scratch {
 // by class, threads in order): each thread's prefix in `left`, the
 // block's totals in `tot`.
 template <int N>
-__device__ __forceinline__ void block_scan(const float* run, float* left,
-                                           float* tot, Scratch& sh) {
+__device__ __forceinline__ void block_scan(const int* run, int* left,
+                                           int* tot, Scratch& sh) {
   const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
-  float incl[N];
+  int incl[N];
 #pragma unroll
   for (int s = 0; s < N; ++s) {
-    float x = run[s];
+    int x = run[s];
 #pragma unroll
     for (int off = 1; off < 32; off <<= 1) {
-      const float y = __shfl_up_sync(FULL, x, off);
+      const int y = __shfl_up_sync(FULL, x, off);
       if (lane >= off) x += y;
     }
     incl[s] = x;
@@ -315,10 +323,10 @@ __device__ __forceinline__ void block_scan(const float* run, float* left,
   if (warp == 0) {
 #pragma unroll
     for (int s = 0; s < N; ++s) {
-      float x = lane < WARPS ? sh.part[lane][s] : 0.0f;
+      int x = lane < WARPS ? sh.part[lane][s] : 0;
 #pragma unroll
       for (int off = 1; off < 32; off <<= 1) {
-        const float y = __shfl_up_sync(FULL, x, off);
+        const int y = __shfl_up_sync(FULL, x, off);
         if (lane >= off) x += y;
       }
       if (lane < WARPS) sh.part[lane][s] = x;
@@ -327,7 +335,7 @@ __device__ __forceinline__ void block_scan(const float* run, float* left,
   __syncthreads();
 #pragma unroll
   for (int s = 0; s < N; ++s) {
-    left[s] = incl[s] - run[s] + (warp > 0 ? sh.part[warp - 1][s] : 0.0f);
+    left[s] = incl[s] - run[s] + (warp > 0 ? sh.part[warp - 1][s] : 0);
     tot[s] = sh.part[WARPS - 1][s];
   }
   __syncthreads();           // sh.part is reused
@@ -341,7 +349,7 @@ __device__ __forceinline__ void block_scan(const float* run, float* left,
 // left counts.
 template <int C, bool GK>
 __global__ void __launch_bounds__(THREADS)
-brm_score(const float* __restrict__ tables,
+brm_score(const int* __restrict__ tables,
           const unsigned char* __restrict__ cand, long long nseg, int V,
           int S_arg, int kind, float min_records,
           unsigned long long* __restrict__ scored,
@@ -355,7 +363,7 @@ brm_score(const float* __restrict__ tables,
   unsigned long long* keys =
       GK ? reinterpret_cast<unsigned long long*>(slice) : smem;
   unsigned char* sflags = reinterpret_cast<unsigned char*>(smem + V);
-  float* wcls = reinterpret_cast<float*>(slice + (GK ? (size_t)V * 8 : 0));
+  int* wcls = reinterpret_cast<int*>(slice + (GK ? (size_t)V * 8 : 0));
   const long long ngroup = (nseg + SEGS - 1) / SEGS;
   for (long long grp = blockIdx.x; grp < ngroup; grp += gridDim.x) {
     const long long seg1 = min(nseg, (grp + 1) * SEGS);
@@ -366,7 +374,7 @@ brm_score(const float* __restrict__ tables,
         store_row(row, nullptr, V);
         continue;
       }
-      const float* tab = tables + seg * (long long)V * S;
+      const int* tab = tables + seg * (long long)V * S;
       unsigned char* flags = GK ? row : sflags;
       if (tid == 0) {
         sh.k = 0;
@@ -377,24 +385,24 @@ brm_score(const float* __restrict__ tables,
       // 1. compact the categories that hold rows into sort keys
       constexpr int U = C == 2 ? UNROLL : 1;
       for (int base = 0; base < V; base += THREADS * U) {
-        float tc[U], lc[U];
+        int tc[U], lc[U];
 #pragma unroll
         for (int u = 0; u < U; ++u) {
           const int v = base + u * THREADS + tid;
-          tc[u] = 0.0f;
-          lc[u] = 0.0f;
+          tc[u] = 0;
+          lc[u] = 0;
           if (v < V) held<C>(tab, v, S, tc[u], lc[u]);
         }
 #pragma unroll
         for (int u = 0; u < U; ++u) {
           const int v = base + u * THREADS + tid;
-          const bool hold = tc[u] > 0.0f;
+          const bool hold = tc[u] > 0;
           const unsigned ballot = __ballot_sync(FULL, hold);
           int at = 0;
           if (lane == 0 && ballot) at = atomicAdd(&sh.k, __popc(ballot));
           at = __shfl_sync(FULL, at, 0);
           if (hold) {
-            const float metric = lc[u] / fmaxf(tc[u], 1e-12f);
+            const float metric = (float)lc[u] / fmaxf((float)tc[u], 1e-12f);
             keys[at + __popc(ballot & ((1u << lane) - 1u))] =
                 ((unsigned long long)order_bits(metric) << 32) |
                 (unsigned)v;
@@ -452,7 +460,7 @@ brm_score(const float* __restrict__ tables,
       if constexpr (C > 0) {
         Cls<C> run;
 #pragma unroll
-        for (int s = 0; s < C; ++s) run.l[s] = 0.0f;
+        for (int s = 0; s < C; ++s) run.l[s] = 0;
         for (int p = p0; p < min(p1, k); ++p)
           add_counts<C>(tab, (int)(keys[p] & 0xffffffffu), S, run);
         block_scan<C>(run.l, cv.l, cv.t, sh);
@@ -460,11 +468,11 @@ brm_score(const float* __restrict__ tables,
         cv.t = wcls;
         cv.l = wcls + S + tid;
         for (int c0 = 0; c0 < S; c0 += CH) {
-          float run[CH], left[CH], tot[CH];
+          int run[CH], left[CH], tot[CH];
 #pragma unroll
-          for (int c = 0; c < CH; ++c) run[c] = 0.0f;
+          for (int c = 0; c < CH; ++c) run[c] = 0;
           for (int p = p0; p < min(p1, k); ++p) {
-            const float* r = tab + (size_t)(keys[p] & 0xffffffffu) * S + c0;
+            const int* r = tab + (size_t)(keys[p] & 0xffffffffu) * S + c0;
 #pragma unroll
             for (int c = 0; c < CH; ++c)
               if (c0 + c < S) run[c] += r[c];
@@ -589,7 +597,7 @@ cudaError_t make_plan(Plan& p, long long nseg, int V, int S) {
 }
 
 template <int C, bool GK>
-void launch(const Plan& p, const float* tables, const unsigned char* cand,
+void launch(const Plan& p, const int* tables, const unsigned char* cand,
             long long nseg, int V, int S, int kind, float min_records,
             unsigned long long* scored, float* gains, unsigned char* masks,
             unsigned char* ws, cudaStream_t stream) {
@@ -609,11 +617,11 @@ extern "C" long long brm_workspace_bytes(long long nseg, int V, int S) {
   return p.stride * p.grid;
 }
 
-// tables (nseg, V, S) float32 (nseg = T * m * L1), cand (nseg) bytes;
+// tables (nseg, V, S) int32 (nseg = T * m * L1), cand (nseg) bytes;
 // out: gains (nseg) float32, masks (nseg, V) bytes; scored (1) uint64 is
 // added to; ws: brm_workspace_bytes(nseg, V, S) bytes of device memory
 // (null when that is 0).  Returns the first CUDA error.
-extern "C" int brm_launch(const float* tables, const unsigned char* cand,
+extern "C" int brm_launch(const int* tables, const unsigned char* cand,
                           long long nseg, int V, int S, int kind,
                           float min_records, unsigned long long* scored,
                           float* gains, unsigned char* masks, void* ws,

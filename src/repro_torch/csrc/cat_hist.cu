@@ -42,8 +42,9 @@
 // The host (kernels/cat_hist.py) sizes the tiles from (L1, V, S); the work
 // items are planned on the device from the per-leaf row counts (cat_plan),
 // so the host never waits for the card.  Classification adds only the one
-// nonzero entry w; its table entries are integers below 2^24, so float
-// atomics are exact and the table is bit-equal to any summation order.
+// nonzero entry w, a bag count (an integer: a fraction is dropped), with
+// integer atomics: the table is int32 class counts, exact to 2^31 in any
+// order.
 // Regression adds 64-bit fixed-point integers (one power-of-two scale per
 // stat channel, picked by the caller from the data's magnitude), which is
 // associative, so repeated runs give the same bits; a last pass converts
@@ -113,22 +114,18 @@ __global__ void cat_bucket_count(const int* __restrict__ leaf,
 // pos[(t * L1 + h) * NB + b] (the leaf's start plus the counts of the
 // leaf's earlier chunks) onward, in row order.  The running offsets live
 // in shared memory, else in the chunk's slice of pos, which is then
-// consumed.  flags[0] is or-ed with 1 if a listed row's weight is not an
-// integer in [0, wmax] (then integer table counts could not hold the
-// float sums).  With `pack` (classification, pack = S + 1) the row word
+// consumed.  With `pack` (classification, pack = S + 1) the row word
 // is row * pack + class, pack - 1 for a label outside [0, S), and yl is
 // not written.
 __global__ void cat_bucket_scatter(const int* __restrict__ leaf,
                                    const float* __restrict__ w,
                                    const float* __restrict__ y, int n,
-                                   int L1, int R, int NB, int smem,
-                                   float wmax, int pack,
+                                   int L1, int R, int NB, int smem, int pack,
                                    const int* __restrict__ lstart,
                                    int* __restrict__ pos,
                                    int* __restrict__ rows,
                                    float* __restrict__ wl,
-                                   float* __restrict__ yl,
-                                   int* __restrict__ flags) {
+                                   float* __restrict__ yl) {
   extern __shared__ int sc[];
   const int b = blockIdx.x, t = blockIdx.y, lane = threadIdx.x;
   int* C = smem ? sc : pos + (size_t)t * L1 * NB + b;
@@ -143,7 +140,6 @@ __global__ void cat_bucket_scatter(const int* __restrict__ leaf,
   const int* lt = leaf + (size_t)t * n;
   const float* wt = w + (size_t)t * n;
   const size_t out = (size_t)t * n;
-  bool odd = false;                     // a weight integer counts can't take
   for (long long k0 = r0; k0 < r1; k0 += 32 * BUCKET_STEPS) {
     int hs[BUCKET_STEPS];               // the steps' loads all in flight
     float ws[BUCKET_STEPS], ys[BUCKET_STEPS];
@@ -178,14 +174,12 @@ __global__ void cat_bucket_scatter(const int* __restrict__ leaf,
           rows[out + p] = r;
           yl[out + p] = ys[u];
         }
-        odd |= !(ws[u] == rintf(ws[u]) && ws[u] <= wmax);
       }
       __syncwarp();
       if (h >= 0 && lane == __ffs(g) - 1) C[h * cs] += __popc(g);
       __syncwarp();
     }
   }
-  if (__any_sync(FULL, odd) && lane == 0 && flags) atomicOr(flags, 1);
 }
 
 // Between the passes: each (tree, leaf) row of the count table becomes the
@@ -313,13 +307,13 @@ cat_plan(const int* __restrict__ lstart, int natural, int T, int n, int L1,
 // the tile blocks add into it.  Grid (Wmax, m).
 __global__ void cat_zero_split(const int* __restrict__ work, int m, int L1,
                                int V, int SW, int LT,
-                               float* __restrict__ out) {
+                               unsigned* __restrict__ out) {
   const int* wk = work + (size_t)blockIdx.x * WORK;
   if (wk[0] < 0 || wk[4] != 1) return;
   const int h0 = wk[1] * LT, nh = min(L1, h0 + LT) - h0;
-  float* dst = out + (((size_t)wk[0] * m + blockIdx.y) * L1 + h0) * V * SW;
+  unsigned* dst = out + (((size_t)wk[0] * m + blockIdx.y) * L1 + h0) * V * SW;
   const size_t len = (size_t)nh * V * SW;
-  for (size_t i = threadIdx.x; i < len; i += blockDim.x) dst[i] = 0.0f;
+  for (size_t i = threadIdx.x; i < len; i += blockDim.x) dst[i] = 0u;
 }
 
 __host__ __device__ __forceinline__ size_t pad16(size_t bytes) {
@@ -350,18 +344,18 @@ __device__ __forceinline__ int leaf_of_pos(const int* bound, int nh, int k) {
 // One table tile per block: work item blockIdx.x / nCT, category tile
 // blockIdx.x % nCT, column blockIdx.y.  NATURAL: the rows are a range of
 // the natural row order (the tile is the whole table); else a range of the
-// tree's bucketed list.  Classification: float cells (S per category);
-// regression: uint64 fixed-point cells (3 per category).
+// tree's bucketed list.  Classification: int32 count cells (S per
+// category, into `out`); regression: uint64 fixed-point cells (3 per
+// category, into `acc`).
 template <int TASK, bool NATURAL>
 __global__ void __launch_bounds__(TILE_THREADS)
 cat_tile(const int* __restrict__ x, const int* __restrict__ leaf,
          const float* __restrict__ w, const float* __restrict__ y,
          const int* __restrict__ rows, const float* __restrict__ wl,
          const float* __restrict__ yl, const int* __restrict__ lstart,
-         const int* __restrict__ work, const int* __restrict__ flags,
-         int pack, int m, int n, int L1, int V, int S, int LT, int CT,
-         int nCT, double s0, double s1, double s2, float* __restrict__ out,
-         unsigned long long* __restrict__ acc) {
+         const int* __restrict__ work, int pack, int m, int n, int L1, int V,
+         int S, int LT, int CT, int nCT, double s0, double s1, double s2,
+         unsigned* __restrict__ out, unsigned long long* __restrict__ acc) {
   extern __shared__ __align__(16) unsigned char smem[];
   const int* wk = work + (size_t)(blockIdx.x / nCT) * WORK;
   const int ct = blockIdx.x % nCT, j = blockIdx.y;
@@ -375,13 +369,7 @@ cat_tile(const int* __restrict__ x, const int* __restrict__ leaf,
   // each padded to 16 bytes (tile_smem_bytes)
   int* bound = reinterpret_cast<int*>(smem);
   unsigned char* table = smem + pad16((size_t)(nh + 1) * 4);
-  float* tf = reinterpret_cast<float*>(table);
   unsigned* tu = reinterpret_cast<unsigned*>(table);
-  // classification of bucketed rows whose weights are all small integers
-  // (flags[0] == 0) keeps integer counts: native shared-memory integer
-  // atomics, where a float atomic add is a compare-and-swap loop; the
-  // counts convert to the same floats as any exact summation
-  const bool counts = TASK == CLASSIFICATION && !NATURAL && flags[0] == 0;
   unsigned long long* tq = reinterpret_cast<unsigned long long*>(table);
   const size_t cell_bytes = TASK == CLASSIFICATION ? 4 : 8;
   uint4* t4 = reinterpret_cast<uint4*>(table);
@@ -438,8 +426,7 @@ cat_tile(const int* __restrict__ x, const int* __restrict__ leaf,
       if (TASK == CLASSIFICATION) {
         const int cls = (int)yy[u];
         if (cls < 0 || cls >= S) continue;
-        if (counts) atomicAdd(tu + cell + cls, (unsigned)ww[u]);
-        else atomicAdd(tf + cell + cls, ww[u]);
+        atomicAdd(tu + cell + cls, (unsigned)ww[u]);
       } else {
         const float wy = ww[u] * yy[u];
         atomicAdd(tq + cell,
@@ -462,17 +449,9 @@ cat_tile(const int* __restrict__ x, const int* __restrict__ leaf,
   if (!atomic && (nh == 1 || cw == V)) {        // one contiguous span
     if (TASK == CLASSIFICATION && aligned16(out + base) &&
         (cells & 3) == 0) {
-      float4* o4 = reinterpret_cast<float4*>(out + base);
-      const uint4* s4 = reinterpret_cast<const uint4*>(tf);
-      for (int i = threadIdx.x; i < cells / 4; i += TILE_THREADS) {
-        const uint4 q = s4[i];          // streaming stores keep x in L2
-        __stcs(o4 + i, counts ? make_float4((float)q.x, (float)q.y,
-                                            (float)q.z, (float)q.w)
-                              : make_float4(__uint_as_float(q.x),
-                                            __uint_as_float(q.y),
-                                            __uint_as_float(q.z),
-                                            __uint_as_float(q.w)));
-      }
+      uint4* o4 = reinterpret_cast<uint4*>(out + base);
+      for (int i = threadIdx.x; i < cells / 4; i += TILE_THREADS)
+        __stcs(o4 + i, t4[i]);          // streaming stores keep x in L2
       return;
     }
     if (TASK == REGRESSION && aligned16(acc + base) && (cells & 1) == 0) {
@@ -488,9 +467,8 @@ cat_tile(const int* __restrict__ x, const int* __restrict__ leaf,
     const size_t dst = (((size_t)t * m + j) * L1 + h0 + hh) * V * SW
         + (size_t)c0 * SW + rem;
     if (TASK == CLASSIFICATION) {
-      const float val = counts ? (float)tu[i] : tf[i];
-      if (!atomic) __stcs(out + dst, val);
-      else if (val != 0.0f) atomicAdd(out + dst, val);
+      if (!atomic) __stcs(out + dst, tu[i]);
+      else if (tu[i] != 0u) atomicAdd(out + dst, tu[i]);
     } else {
       const unsigned long long q = tq[i];
       if (!atomic) acc[dst] = q;
@@ -522,10 +500,9 @@ cudaError_t launch_tile(dim3 grid, size_t smem, cudaStream_t stream,
                         const int* x, const int* leaf, const float* w,
                         const float* y, const int* rows, const float* wl,
                         const float* yl, const int* lstart, const int* work,
-                        const int* flags, int pack, int m, int n, int L1,
-                        int V, int S, int LT, int CT, int nCT, double s0,
-                        double s1, double s2, float* out,
-                        unsigned long long* acc) {
+                        int pack, int m, int n, int L1, int V, int S, int LT,
+                        int CT, int nCT, double s0, double s1, double s2,
+                        unsigned* out, unsigned long long* acc) {
   auto fn = cat_tile<TASK, NATURAL>;
   if (smem > 48 * 1024) {
     cudaError_t err = cudaFuncSetAttribute(
@@ -533,9 +510,9 @@ cudaError_t launch_tile(dim3 grid, size_t smem, cudaStream_t stream,
     if (err != cudaSuccess) return err;
   }
   fn<<<grid, TILE_THREADS, smem, stream>>>(x, leaf, w, y, rows, wl, yl,
-                                           lstart, work, flags, pack, m, n,
-                                           L1, V, S, LT, CT, nCT, s0, s1, s2,
-                                           out, acc);
+                                           lstart, work, pack, m, n, L1, V,
+                                           S, LT, CT, nCT, s0, s1, s2, out,
+                                           acc);
   return cudaGetLastError();
 }
 
@@ -550,19 +527,17 @@ extern "C" int cat_hist_smem_optin() {
 }
 
 // The bucketing: scratch cnt (T, L1, NB) and total (T, L1) int32; out:
-// lstart (T, L1+1), the lists rows/wl/yl (T, n) (each tree's first
-// lstart[t][L1] entries) and flags[0] (see cat_bucket_scatter).  Chunk b
-// covers rows [b*R, (b+1)*R).
+// lstart (T, L1+1) and the lists rows/wl/yl (T, n) (each tree's first
+// lstart[t][L1] entries).  Chunk b covers rows [b*R, (b+1)*R).
 extern "C" int cat_bucket_launch(const int* leaf, const float* w,
                                  const float* y, int T, int n, int L1, int R,
-                                 int NB, float wmax, int pack, int* cnt,
-                                 int* total, int* lstart, int* rows,
-                                 float* wl, float* yl, int* flags,
+                                 int NB, int pack, int* cnt, int* total,
+                                 int* lstart, int* rows, float* wl, float* yl,
                                  void* stream_ptr) {
   cudaStream_t st = (cudaStream_t)stream_ptr;
   const int smem = (size_t)L1 * sizeof(int) <= 48 * 1024;
-  cudaError_t err = cudaMemsetAsync(flags, 0, sizeof(int), st);
-  if (err == cudaSuccess && !smem)
+  cudaError_t err = cudaSuccess;
+  if (!smem)
     err = cudaMemsetAsync(cnt, 0, (size_t)T * L1 * NB * sizeof(int), st);
   if (err != cudaSuccess) return (int)err;
   const size_t sm = smem ? L1 * sizeof(int) : 0;
@@ -575,25 +550,23 @@ extern "C" int cat_bucket_launch(const int* leaf, const float* w,
   cat_bucket_starts<<<T, SCAN_THREADS, 0, st>>>(total, L1, lstart);
   if ((err = cudaGetLastError()) != cudaSuccess) return (int)err;
   cat_bucket_scatter<<<dim3(NB, T), 32, sm, st>>>(leaf, w, y, n, L1, R, NB,
-                                                 smem, wmax, pack, lstart,
-                                                 cnt, rows, wl, yl, flags);
+                                                 smem, pack, lstart, cnt,
+                                                 rows, wl, yl);
   return (int)cudaGetLastError();
 }
 
 // The tables of one tree group: plans the work items into `work` (Wmax, 5)
 // int32 scratch (cat_plan; lstart (T, L1+1) list offsets, unused when
-// natural), then builds the tiles (`flags` from cat_bucket_scatter picks
-// integer counts for classification; unused when natural).
-// Classification: out (T, m, L1, V, S) float32, split tiles' regions
+// natural), then builds the tiles.
+// Classification: out (T, m, L1, V, S) int32 counts, split tiles' regions
 // zeroed first (cat_zero_split).
 // Regression: the tiles store or add uint64 cells into acc (T, m, L1, V, 3),
 // zeroed by the caller, which fixed_to_float converts into out.
 static int cat_tables_launch(
     int task, int natural, const int* x, const int* leaf, const float* w,
     const float* y, const int* rows, const float* wl, const float* yl,
-    const int* lstart, int* work, const int* flags, int pack, int Wmax,
-    int m, int n, int T, int L1, int V, int S, int LT, int nLT, int CT,
-    int nCT, int piece,
+    const int* lstart, int* work, int pack, int Wmax, int m, int n, int T, int L1, int V, int S, int LT, int nLT,
+    int CT, int nCT, int piece,
     double s0, double s1, double s2, float* out, unsigned long long* acc,
     void* stream_ptr) {
   if (Wmax < 1 || nCT < 1 || m < 1 || m > 65535 || piece < 1 ||
@@ -606,16 +579,16 @@ static int cat_tables_launch(
   if (err != cudaSuccess) return (int)err;
   const int SW = task == CLASSIFICATION ? S : 3;
   if (task == CLASSIFICATION) {
-    cat_zero_split<<<dim3(Wmax, m), BLOCK, 0, st>>>(work, m, L1, V, SW, LT,
-                                                   out);
+    cat_zero_split<<<dim3(Wmax, m), BLOCK, 0, st>>>(
+        work, m, L1, V, SW, LT, reinterpret_cast<unsigned*>(out));
     if ((err = cudaGetLastError()) != cudaSuccess) return (int)err;
   }
   const size_t smem = tile_smem_bytes(LT < L1 ? LT : L1, CT, SW, task);
   const dim3 grid((unsigned)(Wmax * nCT), (unsigned)m);
 #define CAT_TILE(TK, NAT)                                                  \
   launch_tile<TK, NAT>(grid, smem, st, x, leaf, w, y, rows, wl, yl, lstart, \
-                       work, flags, pack, m, n, L1, V, S, LT, CT, nCT, s0,   \
-                       s1, s2, out, acc)
+                       work, pack, m, n, L1, V, S, LT, CT, nCT, s0, s1, s2,  \
+                       reinterpret_cast<unsigned*>(out), acc)
   if (task == CLASSIFICATION)
     err = natural ? CAT_TILE(CLASSIFICATION, true)
                   : CAT_TILE(CLASSIFICATION, false);
@@ -631,37 +604,35 @@ static int cat_tables_launch(
 
 // The whole of one tree group in one call: bucketing (unless natural),
 // then the tables.  ints: int32 scratch laid out as cnt (T, L1, NB), total
-// (T, L1), lstart (T, L1+1), flags (1), work (Wmax, 5) — natural: work
-// only; lists: float32 scratch (3, T, n) for rows, wl, yl (null when
-// natural), (2, T, n) when `pack` (classification: row * pack + class in
-// `rows`, no yl; pack = S + 1).
+// (T, L1), lstart (T, L1+1), work (Wmax, 5) — natural: work only; lists:
+// float32 scratch (3, T, n) for rows, wl, yl (null when natural), (2, T, n)
+// when `pack` (classification: row * pack + class in `rows`, no yl;
+// pack = S + 1).  out: classification's int32 cells, regression's float32.
 extern "C" int cat_hist_launch(
     int task, int natural, const int* x, const int* leaf, const float* w,
     const float* y, int T, int m, int n, int L1, int V, int S, int LT,
-    int nLT, int CT, int nCT, int R, int NB, float wmax, int piece, int Wmax,
-    int pack, double s0, double s1, double s2, int* ints, float* lists,
-    float* out, unsigned long long* acc, void* stream_ptr) {
-  int *lstart = nullptr, *flags = nullptr, *rows = nullptr;
+    int nLT, int CT, int nCT, int R, int NB, int piece, int Wmax, int pack,
+    double s0, double s1, double s2, int* ints, float* lists, float* out,
+    unsigned long long* acc, void* stream_ptr) {
+  int *lstart = nullptr, *rows = nullptr;
   float *wl = nullptr, *yl = nullptr;
   int* work = ints;
   if (!natural) {
     int* cnt = ints;
     int* total = cnt + (size_t)T * L1 * NB;
     lstart = total + (size_t)T * L1;
-    flags = lstart + (size_t)T * (L1 + 1);
-    work = flags + 1;
+    work = lstart + (size_t)T * (L1 + 1);
     rows = reinterpret_cast<int*>(lists);
     wl = lists + (size_t)T * n;
     yl = pack ? nullptr : lists + 2 * (size_t)T * n;
-    const int err = cat_bucket_launch(leaf, w, y, T, n, L1, R, NB, wmax, pack,
-                                      cnt, total, lstart, rows, wl, yl, flags,
+    const int err = cat_bucket_launch(leaf, w, y, T, n, L1, R, NB, pack, cnt,
+                                      total, lstart, rows, wl, yl,
                                       stream_ptr);
     if (err != 0) return err;
   }
   return cat_tables_launch(task, natural, x, leaf, w, y, rows, wl, yl, lstart,
-                           work, flags, pack, Wmax, m, n, T, L1, V, S, LT,
-                           nLT, CT, nCT, piece, s0, s1, s2, out, acc,
-                           stream_ptr);
+                           work, pack, Wmax, m, n, T, L1, V, S, LT, nLT, CT,
+                           nCT, piece, s0, s1, s2, out, acc, stream_ptr);
 }
 
 // The plan alone (for checking cat_plan against its plain version).

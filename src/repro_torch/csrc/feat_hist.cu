@@ -49,9 +49,11 @@
 //   wrapper splits larger batches) and adds its stat into the table in
 //   device memory with an atomic per (column, tree).  There the adds
 //   spread over many cells.
-// Classification adds only the one nonzero entry w; table entries are
-// integers below 2^24, so every float add of the flush is exact and the
-// table is bit-equal to any summation order.  Regression adds 64-bit
+// Classification adds only the one nonzero entry w into float32 tables,
+// exact while a table entry stays below 2^24: the tree drivers refuse a
+// hist-mode tree whose in-bag weight reaches 2^24 (`plan.count_limit`), so
+// every float add of the flush is exact and the table is bit-equal to any
+// summation order.  Regression adds 64-bit
 // fixed-point integers (one power-of-two scale per stat channel, picked by
 // the caller from the data's magnitude) on both paths, which is
 // associative, so repeated runs, and the two paths, give the same bits; a

@@ -37,10 +37,13 @@
 // Only lanes whose leaf recurs within the step are ever shuffled, so at a
 // wide frontier a step is nearly free of cross-lane work.  Every sum takes
 // its terms in row order, as a serial scan would: the result is the same
-// bits as Alg. 1's serial recurrence for every task, and for binary
-// classification (integer prefixes below 2^24) bit-equal to the plain
-// version.  Compiled with -fmad=false: the impurity expressions keep the
-// reference's operation order and no multiply-add is fused.
+// bits as Alg. 1's serial recurrence for every task.  Classification
+// counts (prefixes, carries, the level's totals) are int32, exact to 2^31,
+// and each is converted to float32 once where a gain is computed, as the
+// plain version does: binary classification is bit-equal to it at any
+// row count.  Regression sums are float32.  Compiled with -fmad=false: the
+// impurity expressions keep the reference's operation order and no
+// multiply-add is fused.
 //
 #include <cuda_runtime.h>
 #include <math_constants.h>
@@ -91,10 +94,11 @@ __device__ __forceinline__ float impurity(const float* h, int S, int kind) {
   return -(n * acc);
 }
 
-template <int SM>
-__device__ __forceinline__ float count(const float* h, int S, int task) {
+// A: the stat type, int (classification counts) or float (regression).
+template <int SM, class A>
+__device__ __forceinline__ A count(const A* h, int S, int task) {
   if (task != CLASSIFICATION) return h[0];
-  float n = 0.0f;
+  A n = 0;
 #pragma unroll
   for (int s = 0; s < SM; ++s)
     if (s < S) n += h[s];
@@ -103,15 +107,15 @@ __device__ __forceinline__ float count(const float* h, int S, int task) {
 
 // Add one row's stats to a per-leaf stat vector held in registers (the
 // class index is compared, never used as an index, so `acc` stays in
-// registers).
-template <int SM>
-__device__ __forceinline__ void add_row(float* acc, int S, int task, float w,
+// registers).  A classification row adds its integer bag weight.
+template <int SM, class A>
+__device__ __forceinline__ void add_row(A* acc, int S, int task, float w,
                                         float y) {
   if (task == CLASSIFICATION) {
     const int cls = (int)y;            // one_hot(y) * w: one nonzero entry
 #pragma unroll
     for (int s = 0; s < SM; ++s)
-      if (s < S && s == cls) acc[s] += w;
+      if (s < S && s == cls) acc[s] += (A)w;
   } else {
     const float wy = w * y;
     acc[0] += w;
@@ -202,21 +206,21 @@ __device__ __forceinline__ Step load_step(const Tile& tile, int k0, int n_act,
 }
 
 // Phase 1: per (tree, column, chunk) per-leaf stat sums and last value.
-// SM: the stat width the registers hold (>= S).
-template <bool SMEM, int SM>
+// SM: the stat width the registers hold (>= S); A: the stat type.
+template <bool SMEM, int SM, class A>
 __global__ void ss_chunk_sums(
     const float* __restrict__ vals, const int* __restrict__ sidx,
     const int4* __restrict__ state, const unsigned char* __restrict__ cand,
     int m, int n, int L1, int S, int task, long long chunk,
-    float* __restrict__ csum, float* __restrict__ clast) {
+    A* __restrict__ csum, float* __restrict__ clast) {
   extern __shared__ float smem[];
   __shared__ Tile tile;
   const int c = blockIdx.x, j = blockIdx.y, t = blockIdx.z;
   const int nc = gridDim.x, lane = threadIdx.x;
   const size_t blk = ((size_t)t * m + j) * nc + c;
-  float* H = SMEM ? smem : csum + blk * L1 * S;                   // L1 * S
-  float* V = SMEM ? smem + (size_t)L1 * S : clast + blk * L1;     // L1
-  for (int i = lane; i < L1 * S; i += WARP) H[i] = 0.0f;
+  A* H = SMEM ? reinterpret_cast<A*>(smem) : csum + blk * L1 * S;  // L1 * S
+  float* V = SMEM ? smem + (size_t)L1 * S : clast + blk * L1;      // L1
+  for (int i = lane; i < L1 * S; i += WARP) H[i] = 0;
   for (int i = lane; i < L1; i += WARP) V[i] = -CUDART_INF_F;
   __syncwarp();
 
@@ -230,15 +234,16 @@ __global__ void ss_chunk_sums(
     const int n_act = stage_tile(base, r1, vcol, icol, st, ct, lane, tile);
     for (int k0 = 0; k0 < n_act; k0 += WARP) {
       const Step p = load_step(tile, k0, n_act, lane);
-      float acc[SM];                  // only the group's last lane sums
+      A acc[SM];                      // only the group's last lane sums
 #pragma unroll
       for (int s = 0; s < SM; ++s)
-        acc[s] = p.last && s < S ? H[(size_t)p.h * S + s] : 0.0f;
+        acc[s] = p.last && s < S ? H[(size_t)p.h * S + s] : (A)0;
       for (unsigned mm = p.multi; mm; mm &= mm - 1) {
         const int i = __ffs(mm) - 1;
         const float wi = __shfl_sync(0xffffffffu, p.w, i);
         const float yi = __shfl_sync(0xffffffffu, p.y, i);
-        if (p.last && ((p.lower >> i) & 1u)) add_row<SM>(acc, S, task, wi, yi);
+        if (p.last && ((p.lower >> i) & 1u))
+          add_row<SM>(acc, S, task, wi, yi);
       }
       if (p.last) {
         add_row<SM>(acc, S, task, p.w, p.y);
@@ -262,19 +267,20 @@ __global__ void ss_chunk_sums(
 // loads overlap; the sums are still taken in chunk order.
 constexpr int CARRY_UNROLL = 8;
 
-__global__ void ss_carry(float* __restrict__ csum, float* __restrict__ clast,
+template <class A>
+__global__ void ss_carry(A* __restrict__ csum, float* __restrict__ clast,
                          int TM, int nc, int L1, int S) {
   const long long i = (long long)blockIdx.x * blockDim.x + threadIdx.x;
   const long long per = (long long)L1 * S;
   if (i >= TM * per) return;
   const long long tm = i / per, q = i % per;
-  float* base = csum + (size_t)tm * nc * per + q;
-  float acc = 0.0f;
+  A* base = csum + (size_t)tm * nc * per + q;
+  A acc = 0;
   for (int c0 = 0; c0 < nc; c0 += CARRY_UNROLL) {
-    float v[CARRY_UNROLL];
+    A v[CARRY_UNROLL];
 #pragma unroll
     for (int u = 0; u < CARRY_UNROLL; ++u)
-      v[u] = c0 + u < nc ? base[(size_t)(c0 + u) * per] : 0.0f;
+      v[u] = c0 + u < nc ? base[(size_t)(c0 + u) * per] : (A)0;
 #pragma unroll
     for (int u = 0; u < CARRY_UNROLL; ++u) {
       if (c0 + u < nc) {
@@ -303,12 +309,12 @@ __global__ void ss_carry(float* __restrict__ csum, float* __restrict__ clast,
 }
 
 // Phase 3: rescan each chunk from its carried prefix; per-leaf best.
-template <bool SMEM, int SM>
+template <bool SMEM, int SM, class A>
 __global__ void ss_chunk_best(
     const float* __restrict__ vals, const int* __restrict__ sidx,
     const int4* __restrict__ state, const unsigned char* __restrict__ cand,
-    const float* __restrict__ totals, int m, int n, int L1, int S, int kind,
-    int task, float min_records, long long chunk, float* __restrict__ csum,
+    const A* __restrict__ totals, int m, int n, int L1, int S, int kind,
+    int task, float min_records, long long chunk, A* __restrict__ csum,
     float* __restrict__ clast, float* __restrict__ cgain,
     float* __restrict__ cthr) {
   extern __shared__ float smem[];
@@ -318,13 +324,14 @@ __global__ void ss_chunk_best(
   const size_t blk = ((size_t)t * m + j) * nc + c;
   const size_t LS = (size_t)L1 * S;
   // carried prefix, level totals, last in-bag value, best gain, threshold
-  float* H = SMEM ? smem : csum + blk * LS;
-  const float* TOT = SMEM ? smem + LS : totals + (size_t)t * LS;
+  A* H = SMEM ? reinterpret_cast<A*>(smem) : csum + blk * LS;
+  const A* TOT = SMEM ? reinterpret_cast<const A*>(smem + LS)
+                      : totals + (size_t)t * LS;
   float* V = SMEM ? smem + 2 * LS : clast + blk * L1;
   float* BG = SMEM ? V + L1 : cgain + blk * L1;
   float* BT = SMEM ? BG + L1 : cthr + blk * L1;
   if (SMEM) {
-    float* tot = smem + LS;
+    A* tot = reinterpret_cast<A*>(smem + LS);
     for (int i = lane; i < L1 * S; i += WARP) {
       H[i] = csum[blk * LS + i];
       tot[i] = totals[(size_t)t * LS + i];
@@ -349,10 +356,10 @@ __global__ void ss_chunk_best(
       const Step p = load_step(tile, k0, n_act, lane);
       // left = carried prefix + the lower lanes of the group, in row order;
       // prev = the nearest lower lane's value, else the carried last value
-      float left[SM];
+      A left[SM];
 #pragma unroll
       for (int s = 0; s < SM; ++s)
-        left[s] = p.valid && s < S ? H[(size_t)p.h * S + s] : 0.0f;
+        left[s] = p.valid && s < S ? H[(size_t)p.h * S + s] : (A)0;
       float prev = p.valid ? V[p.h] : 0.0f;
       for (unsigned mm = p.multi; mm; mm &= mm - 1) {
         const int i = __ffs(mm) - 1;
@@ -367,18 +374,21 @@ __global__ void ss_chunk_best(
       float g = -CUDART_INF_F, thr = 0.0f;
       bool scored = false;
       if (p.valid && p.a > prev && isfinite(prev)) {
-        float right[SM], parent[SM];
+        A right[SM];
+        float lf[SM], rf[SM], parent[SM];   // each count rounded once
 #pragma unroll
         for (int s = 0; s < SM; ++s) {
           if (s < S) {
             right[s] = TOT[(size_t)p.h * S + s] - left[s];
-            parent[s] = left[s] + right[s];
+            lf[s] = (float)left[s];
+            rf[s] = (float)right[s];
+            parent[s] = lf[s] + rf[s];
           }
         }
-        if (count<SM>(left, S, task) >= min_records &&
-            count<SM>(right, S, task) >= min_records) {
-          g = impurity<SM>(parent, S, kind) - impurity<SM>(left, S, kind)
-              - impurity<SM>(right, S, kind);
+        if ((float)count<SM>(left, S, task) >= min_records &&
+            (float)count<SM>(right, S, task) >= min_records) {
+          g = impurity<SM>(parent, S, kind) - impurity<SM>(lf, S, kind)
+              - impurity<SM>(rf, S, kind);
           thr = (p.a + prev) * 0.5f;
           scored = true;
         }
@@ -462,42 +472,46 @@ cudaError_t smem_limit(size_t* bytes) {
   return cudaSuccess;
 }
 
-// Phases 1-3 with SM stat registers, each phase's state where `layout`
-// puts it; the first CUDA error.
-template <int SM>
+// Phases 1-3 with SM stat registers of type A (int: classification
+// counts, float: regression), each phase's state where `layout` puts it;
+// the first CUDA error.  A has float's width, so the layouts are the same.
+template <int SM, class A>
 cudaError_t launch_phases(dim3 grid, int layout, cudaStream_t stream,
                           const float* vals, const int* sidx,
                           const int4* state, const unsigned char* cand,
-                          const float* totals, int m, int n, int L1, int S,
+                          const void* totals_v, int m, int n, int L1, int S,
                           int kind, int task, float min_records, int nc,
-                          long long chunk, float* csum, float* clast,
+                          long long chunk, void* csum_v, float* clast,
                           float* cgain, float* cthr) {
+  static_assert(sizeof(A) == sizeof(float), "stat cells are 4 bytes");
+  const A* totals = static_cast<const A*>(totals_v);
+  A* csum = static_cast<A*>(csum_v);
   const size_t smem1 = (size_t)L1 * (S + 1) * sizeof(float);
   const size_t smem3 = (size_t)L1 * (2 * S + 3) * sizeof(float);
   cudaError_t err;
   if (layout & 1) {
-    err = set_smem((const void*)ss_chunk_sums<true, SM>, smem1);
+    err = set_smem((const void*)ss_chunk_sums<true, SM, A>, smem1);
     if (err != cudaSuccess) return err;
-    ss_chunk_sums<true, SM><<<grid, WARP, smem1, stream>>>(
+    ss_chunk_sums<true, SM, A><<<grid, WARP, smem1, stream>>>(
         vals, sidx, state, cand, m, n, L1, S, task, chunk, csum, clast);
   } else {
-    ss_chunk_sums<false, SM><<<grid, WARP, 0, stream>>>(
+    ss_chunk_sums<false, SM, A><<<grid, WARP, 0, stream>>>(
         vals, sidx, state, cand, m, n, L1, S, task, chunk, csum, clast);
   }
   if ((err = cudaGetLastError()) != cudaSuccess) return err;
   const long long TM = (long long)grid.z * m;
   const long long carry_threads = TM * L1 * S;
-  ss_carry<<<(unsigned)((carry_threads + 255) / 256), 256, 0, stream>>>(
+  ss_carry<A><<<(unsigned)((carry_threads + 255) / 256), 256, 0, stream>>>(
       csum, clast, (int)TM, nc, L1, S);
   if ((err = cudaGetLastError()) != cudaSuccess) return err;
   if (layout & 2) {
-    err = set_smem((const void*)ss_chunk_best<true, SM>, smem3);
+    err = set_smem((const void*)ss_chunk_best<true, SM, A>, smem3);
     if (err != cudaSuccess) return err;
-    ss_chunk_best<true, SM><<<grid, WARP, smem3, stream>>>(
+    ss_chunk_best<true, SM, A><<<grid, WARP, smem3, stream>>>(
         vals, sidx, state, cand, totals, m, n, L1, S, kind, task,
         min_records, chunk, csum, clast, cgain, cthr);
   } else {
-    ss_chunk_best<false, SM><<<grid, WARP, 0, stream>>>(
+    ss_chunk_best<false, SM, A><<<grid, WARP, 0, stream>>>(
         vals, sidx, state, cand, totals, m, n, L1, S, kind, task,
         min_records, chunk, csum, clast, cgain, cthr);
   }
@@ -520,13 +534,15 @@ extern "C" int split_scan_layout(int L1, int S) {
 
 // Launches the five kernels on `stream`; returns the first CUDA error.
 // Shapes: vals/sidx (m, n); leaf/w (T, n); y (n,); cand (T, m, L1) bytes;
-// totals (T, L1, S); state (T, n) int4, csum (T, m, nc, L1, S) and
-// clast/cgain/cthr (T, m, nc, L1) scratch; gain/thr (T, m, L1) outputs.
+// totals (T, L1, S) int32 class counts (classification) or float32 sums
+// (regression); state (T, n) int4, csum (T, m, nc, L1, S) 4-byte cells of
+// the totals' type and clast/cgain/cthr (T, m, nc, L1) float32 scratch;
+// gain/thr (T, m, L1) outputs.
 extern "C" int split_scan_launch(
     const float* vals, const int* sidx, const int* leaf, const float* w,
-    const float* y, const unsigned char* cand, const float* totals, int T,
+    const float* y, const unsigned char* cand, const void* totals, int T,
     int m, int n, int L1, int S, int kind, int task, float min_records,
-    int nc, long long chunk, int4* state, float* csum, float* clast,
+    int nc, long long chunk, int4* state, void* csum, float* clast,
     float* cgain, float* cthr, float* gain, float* thr, void* stream_ptr) {
   if (S < 1 || S > MAXS || (task == REGRESSION && S != 3))
     return (int)cudaErrorInvalidValue;
@@ -539,11 +555,15 @@ extern "C" int split_scan_launch(
                                                            L1, state);
   cudaError_t err = cudaGetLastError();
   if (err != cudaSuccess) return (int)err;
-#define SS_PHASES(SM)                                                       \
-  launch_phases<SM>(grid, layout, stream, vals, sidx, state, cand, totals,  \
-                    m, n, L1, S, kind, task, min_records, nc, chunk, csum,  \
-                    clast, cgain, cthr)
-  err = S <= 2 ? SS_PHASES(2) : S == 3 ? SS_PHASES(3) : SS_PHASES(MAXS);
+#define SS_PHASES(SM, A)                                                    \
+  launch_phases<SM, A>(grid, layout, stream, vals, sidx, state, cand,       \
+                       totals, m, n, L1, S, kind, task, min_records, nc,    \
+                       chunk, csum, clast, cgain, cthr)
+  if (task == REGRESSION)
+    err = SS_PHASES(3, float);
+  else
+    err = S <= 2 ? SS_PHASES(2, int) : S == 3 ? SS_PHASES(3, int)
+                                              : SS_PHASES(MAXS, int);
 #undef SS_PHASES
   if (err != cudaSuccess) return (int)err;
   const long long red_threads = (long long)T * m * L1;

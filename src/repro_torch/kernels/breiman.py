@@ -5,7 +5,7 @@ Replaces no TPU kernel: the reference scores its tables with plain jnp
 (`splits.best_categorical_split_from_table`).  Contract, for a batch of T
 trees over m categorical columns:
 
-    tables (T, m, L1, V, S) f32   class counts per (tree, column, leaf,
+    tables (T, m, L1, V, S) i32   class counts per (tree, column, leaf,
                                   category), S >= 2 classes
     cand   (T, m, L1) bool        candidate columns of each leaf
     -> gains (T, m, L1) f32, masks (T, m, L1, V) bool (True = LEFT): the
@@ -16,12 +16,14 @@ CUDA source: `repro_torch/csrc/breiman.cu`, which states the bound and the
 design: a block walks a few segments (tree, column, leaf), skips those that
 are not candidates, and sorts and scans only the categories that hold rows.
 `breiman` launches it for CUDA tensors, at any V and any number of classes
-S, and takes the plain version only for CPU tensors.  Gains are bit-equal
-to the plain version's on the card (integer counts, the same operation
-order, the classes added in the order of torch's CUDA sum); wherever the
-gain is finite the masks are equal.  A segment with no valid cut gets −inf
-and, from the kernel, an all-False mask (the plain version flags its first
-category); the level plan reads no mask whose gain is −inf.  Besides the
+S, and takes the plain version only for CPU tensors.  Both sum the counts
+as integers (exact to 2^31) and convert each sum to float32 once for the
+metric and the gains.  Gains are bit-equal to the plain version's on the
+card (integer counts, the same operation order, the classes added in the
+order of torch's CUDA sum); wherever the gain is finite the masks are
+equal.  A segment with no valid cut gets −inf and, from the kernel, an
+all-False mask (the plain version flags its first category); the level
+plan reads no mask whose gain is −inf.  Besides the
 two outputs the wrapper allocates a workspace only where S > 16 (a
 thread's class vectors) or V is too wide for one block's shared memory to
 hold V sort keys (about 25,000 categories): as many slices as blocks are
@@ -82,8 +84,8 @@ def _lib():
 
 
 def _check_inputs(tables, cand):
-    if tables.dtype != torch.float32 or tables.dim() != 5:
-        raise ValueError(f"breiman: tables must be float32 (T, m, L1, V, S), "
+    if tables.dtype != torch.int32 or tables.dim() != 5:
+        raise ValueError(f"breiman: tables must be int32 (T, m, L1, V, S), "
                          f"got {tables.dtype} {tuple(tables.shape)}")
     if cand.dtype != torch.bool or tuple(cand.shape) != tuple(
             tables.shape[:3]):
@@ -112,7 +114,8 @@ def breiman(tables, cand, *, impurity="gini", min_records=1.0):
     """Best Breiman split per (tree, column, leaf) of classification count
     tables: (gains (T, m, L1), masks (T, m, L1, V)).
 
-    CUDA tensors launch the kernel; CPU tensors take the plain version.
+    CUDA tensors launch the kernel, which takes int32 counts only (as
+    `cat_hist` gives them); CPU tensors take the plain version.
     """
     if tables.device.type == "cpu":
         return breiman_plain(tables, cand, impurity=impurity,

@@ -7,10 +7,12 @@ categorical columns of n rows:
 
     x    (m, n) i32      category per row, in [0, V)
     leaf (T, n) i32      leaf id per row, 0 = closed
-    w    (T, n) f32      bag weight per row
+    w    (T, n) f32      bag weight per row (classification: a bag
+                         count, an integer)
     y    (n,)   f32      class id (classification) or target (regression)
-    -> (T, m, L1, V, S) f32: per (tree, column, leaf, category) the sum of
-       the in-bag rows' stats, w·onehot(y) or [w, wy, wy²]
+    -> (T, m, L1, V, S): per (tree, column, leaf, category) the sum of the
+       in-bag rows' stats: int32 class counts w·onehot(y) (classification)
+       or float32 [w, wy, wy²] (regression)
 
 The per-row state is read once as (T, n), never broadcast to (m, n).
 CUDA source: `repro_torch/csrc/cat_hist.cu`, which states the bound and
@@ -21,8 +23,10 @@ from the per-leaf row counts.  `cat_hist` launches it for CUDA tensors
 and takes the plain version (one flat `index_add_` per column) only for
 CPU tensors; so do `leaf_buckets` and its plain version.
 
-Exactness: classification tables are integer counts below 2^24, so the
-kernel's float atomics give the plain version's table bit for bit.
+Exactness: classification tables are int32 counts, summed with integer
+atomics and exact to 2^31 in any order, so the kernel gives the plain
+version's table bit for bit at any row count (both drop a fraction of a
+weight; bag counts have none).
 Regression tables are summed in 64-bit fixed point (deterministic run to
 run, see the source), and so is the plain version (`fixed_point_sums`):
 the two give the same bits, on the card and on the CPU.  (A float32
@@ -50,13 +54,14 @@ launches = 0                # kernel launches (tree groups of <= 8 trees)
 def cat_hist_plain(x, leaf, w, y, *, L1, V, num_stats,
                    task="classification", scales=None, fixed=False):
     """The plain torch version: stats per row, one flat scatter-add.
-    Regression sums in the kernel's 64-bit fixed point
-    (`fixed_point_sums`), so both give the same bits; `scales` and
-    `fixed` as for `cat_hist`."""
+    Classification counts in int32; regression sums in the kernel's 64-bit
+    fixed point (`fixed_point_sums`), so both give the same bits; `scales`
+    and `fixed` as for `cat_hist`."""
     stats = splits.row_stats(y, w, num_stats, task)            # (T, n, S)
     if task != "regression":
         _check_fixed(task, scales, fixed)
-        return splits.categorical_count_tables(x, leaf, w, stats, L1 - 1, V)
+        return splits.categorical_count_tables(
+            x, leaf, w, stats.to(torch.int32), L1 - 1, V)
     if scales is None:
         scales = fixed_point_scales(leaf, w, y, L1)
     acc = fixed_point_sums(
@@ -68,7 +73,7 @@ def cat_hist_plain(x, leaf, w, y, *, L1, V, num_stats,
 def _check_fixed(task, scales, fixed):
     """Explicit scales and int64 sums exist for regression tables only."""
     if scales is not None or fixed:
-        raise ValueError(f"{task} tables are float counts: scales and "
+        raise ValueError(f"{task} tables are counts: scales and "
                          f"fixed=True are for regression only")
 
 
@@ -92,11 +97,9 @@ def _lib():
     lib = _build.load("cat_hist")
     if not getattr(lib, "_typed", False):
         p, i, d = ctypes.c_void_p, ctypes.c_int, ctypes.c_double
-        lib.cat_bucket_launch.argtypes = ([p] * 3 + [i] * 5
-                                          + [ctypes.c_float, i] + [p] * 8)
-        lib.cat_hist_launch.argtypes = ([i, i] + [p] * 4 + [i] * 12
-                                        + [ctypes.c_float, i, i, i] + [d] * 3
-                                        + [p] * 5)
+        lib.cat_bucket_launch.argtypes = [p] * 3 + [i] * 6 + [p] * 7
+        lib.cat_hist_launch.argtypes = ([i, i] + [p] * 4 + [i] * 15
+                                        + [d] * 3 + [p] * 5)
         lib.cat_plan_launch.argtypes = [p] + [i] * 8 + [p, p]
         for fn in (lib.cat_bucket_launch, lib.cat_hist_launch,
                    lib.cat_plan_launch, lib.cat_hist_max_trees,
@@ -186,7 +189,7 @@ def tile_plan(L1: int, V: int, S: int, task: str = "classification",
               budget: int = SMEM_BUDGET) -> TilePlan:
     """The largest tiles that fit in `budget` bytes of shared memory: all
     categories of as many leaves as fit, else category tiles of one leaf
-    (cells of S float32 for classification, 3 uint64 for regression; 4
+    (cells of S int32 for classification, 3 uint64 for regression; 4
     bytes per leaf and one more for the tile's list bounds; 16-byte
     padding after each part)."""
     cell = S * 4 if task == "classification" else 24
@@ -210,17 +213,14 @@ class Buckets(NamedTuple):
     """Each tree's in-bag rows of open leaves (0 < leaf < L1, w > 0),
     ordered by leaf and, within a leaf, by row: the (T, n) lists of row
     ids, weights and labels (entries past lstart[:, -1] are the other rows
-    in the plain version, unwritten by the kernel), the per-leaf list
-    offsets lstart (T, L1+1) int32, and on the card `odd`, a one-element
-    int32 tensor set to 1 when a listed weight is not an integer small
-    enough for the tables' 32-bit counts (n · w < 2^32).  With `classes`
-    = C > 0 the row word holds row · (C+1) + class (C for a label outside
-    [0, C)) and there is no label list (y None)."""
+    in the plain version, unwritten by the kernel) and the per-leaf list
+    offsets lstart (T, L1+1) int32.  With `classes` = C > 0 the row word
+    holds row · (C+1) + class (C for a label outside [0, C)) and there is
+    no label list (y None)."""
     rows: torch.Tensor
     w: torch.Tensor
     y: Optional[torch.Tensor]
     lstart: torch.Tensor
-    odd: Optional[torch.Tensor] = None
 
 
 def leaf_buckets_plain(leaf, w, y, L1, classes: int = 0) -> Buckets:
@@ -252,27 +252,28 @@ def leaf_buckets(leaf, w, y, L1, classes: int = 0) -> Buckets:
     T, n = leaf.shape
     nb, chunk = bucket_chunks(n, T, L1)
     dev = leaf.device
-    ints = torch.empty(T * L1 * nb + T * L1 + T * (L1 + 1) + 1,
+    ints = torch.empty(T * L1 * nb + T * L1 + T * (L1 + 1),
                        dtype=torch.int32, device=dev)
-    cnt, total, lstart, odd = torch.split(
-        ints, [T * L1 * nb, T * L1, T * (L1 + 1), 1])
+    cnt, total, lstart = torch.split(ints, [T * L1 * nb, T * L1,
+                                            T * (L1 + 1)])
     lists = torch.empty((2 if classes else 3, T, n), dtype=torch.float32,
                         device=dev)
     rows = lists[0].view(torch.int32)
     yl = None if classes else lists[2]
     P = _build.ptr
     _build.check(_lib().cat_bucket_launch(
-        P(leaf), P(w), P(y), T, n, L1, chunk, nb, count_wmax(n),
+        P(leaf), P(w), P(y), T, n, L1, chunk, nb,
         classes + 1 if classes else 0,
         P(cnt), P(total), P(lstart), P(rows), P(lists[1]),
-        None if yl is None else P(yl), P(odd), _build.stream_ptr(dev)),
+        None if yl is None else P(yl), _build.stream_ptr(dev)),
         "cat_hist bucketing")
-    return Buckets(rows, lists[1], yl, lstart.view(T, L1 + 1), odd)
+    return Buckets(rows, lists[1], yl, lstart.view(T, L1 + 1))
 
 
 def count_wmax(n: int) -> float:
-    """The largest weight the tables' 32-bit integer counts take for n
-    rows (n · w < 2^32); a larger or fractional weight sums in float."""
+    """The largest weight that 32-bit integer counts take for n rows
+    (n · w < 2^32): `feat_hist` sums a larger or fractional weight in
+    float."""
     return float((2**32 - 1) // max(n, 1))
 
 
@@ -365,7 +366,7 @@ def _group_tables(lib, plan, x, leaf, w, y, L1, V, S, task, scales, out,
     lists = None
     n_ints = W * 5
     if not plan.natural:
-        n_ints += T * L1 * nb + T * L1 + T * (L1 + 1) + 1
+        n_ints += T * L1 * nb + T * L1 + T * (L1 + 1)
         lists = torch.empty((2 if pack else 3, T, n), dtype=torch.float32,
                             device=dev)
     ints = torch.empty(n_ints, dtype=torch.int32, device=dev)
@@ -373,7 +374,7 @@ def _group_tables(lib, plan, x, leaf, w, y, L1, V, S, task, scales, out,
     err = lib.cat_hist_launch(
         TASK[task], int(plan.natural), P(x), P(leaf), P(w), P(y), T, m, n,
         L1, V, S, plan.LT, plan.nLT, plan.CT, plan.nCT, chunk, nb,
-        count_wmax(n), piece, W, pack, s0, s1, s2,
+        piece, W, pack, s0, s1, s2,
         P(ints), None if lists is None else P(lists), P(out),
         None if acc is None else P(acc), _build.stream_ptr(dev))
     _build.check(err, "cat_hist launch")
@@ -382,7 +383,8 @@ def _group_tables(lib, plan, x, leaf, w, y, L1, V, S, task, scales, out,
 def cat_hist(x, leaf, w, y, *, L1, V, num_stats, task="classification",
              scales=None, fixed=False):
     """Count tables (T, m, L1, V, S): the kernel for CUDA tensors, the
-    plain version for CPU tensors.
+    plain version for CPU tensors.  Classification tables are int32 class
+    counts, exact to 2^31 (the weights are bag counts, integers).
 
     Regression only: `scales` (three powers of two) replaces the scales
     picked from these rows, and `fixed=True` returns the int64 fixed-point
@@ -402,7 +404,9 @@ def cat_hist(x, leaf, w, y, *, L1, V, num_stats, task="classification",
     S = num_stats
     lib = _lib()
     plan = tile_plan(L1, V, S, task, min(SMEM_BUDGET, lib.smem_optin))
-    out = torch.empty((T, m, L1, V, S), dtype=torch.float32, device=x.device)
+    out = torch.empty((T, m, L1, V, S), dtype=torch.int32
+                      if task == "classification" else torch.float32,
+                      device=x.device)
     acc = None
     if task == "regression":
         if scales is None:

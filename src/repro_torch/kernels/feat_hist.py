@@ -24,9 +24,11 @@ it for CUDA tensors and takes the plain version
 (`splits.feature_count_tables`, one flat `index_add_`) only for CPU
 tensors.
 
-Exactness, as for `cat_hist`: classification tables are integer counts
-below 2^24, so the kernel's integer counts and float atomics give the
-plain version's table bit for bit; regression tables are summed in 64-bit
+Exactness: classification tables are float32 integer counts, exact below
+2^24, where the tree drivers hold a hist-mode tree (its in-bag weight,
+`plan.count_limit`; the exact path's tables are int32), so the kernel's
+integer counts and float atomics give the plain version's table bit for
+bit; regression tables are summed in 64-bit
 fixed point by both (`cat_hist.fixed_point_sums`), so they give the same
 bits on both paths.
 """

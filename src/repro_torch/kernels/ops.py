@@ -25,9 +25,10 @@ def split_scan_supersplit(sorted_vals, sorted_idx, leaf_of, w, labels, cand,
     """All-columns exact supersplit through the `split_scan` kernel.
 
     sorted_vals/sorted_idx (m, n); leaf_of/w (T, n); labels (n,);
-    cand (T, m, L1) bool; totals (T, L1, S) — the level's per-leaf totals,
-    shared by every column (exact for classification) instead of being
-    recomputed per column.  Returns (gain, thr), each (T, m, L1).
+    cand (T, m, L1) bool; totals (T, L1, S) — the level's per-leaf totals
+    (int32 class counts, or float32 regression sums), shared by every
+    column (exact for classification) instead of being recomputed per
+    column.  Returns (gain, thr), each (T, m, L1).
     """
     return split_scan.split_scan(
         sorted_vals.contiguous(), sorted_idx.contiguous(),
@@ -40,7 +41,9 @@ def split_scan_supersplit(sorted_vals, sorted_idx, leaf_of, w, labels, cand,
 def categorical_tables(cat_cols, leaf_of, w, labels, *, V, Lp,
                        task="classification", num_classes=2, scales=None,
                        fixed=False):
-    """Count tables (T, m_cat, Lp+1, V, S) through the `cat_hist` kernel.
+    """Count tables (T, m_cat, Lp+1, V, S) through the `cat_hist` kernel:
+    int32 class counts for classification (the bag weights are integers;
+    exact to 2^31), float32 for regression.
 
     cat_cols (m_cat, n) column-major categories; leaf_of/w (T, n);
     labels (n,).  V is the (max) arity every column's table is padded to.
@@ -74,7 +77,8 @@ def feature_tables(bin_of, slots, w, labels, *, B, W,
 
 def breiman_splits(tables, cand, impurity="gini", min_records=1.0):
     """The best Breiman split per (tree, column, leaf) of classification
-    count tables (T, m_cat, L1, V, S), through the `breiman` kernel: gains
-    (T, m_cat, L1) and left-masks (T, m_cat, L1, V); cand (T, m_cat, L1)."""
+    count tables (T, m_cat, L1, V, S) (int32, as `categorical_tables`
+    gives them), through the `breiman` kernel: gains (T, m_cat, L1) and
+    left-masks (T, m_cat, L1, V); cand (T, m_cat, L1)."""
     return breiman.breiman(tables.contiguous(), cand.contiguous(),
                            impurity=impurity, min_records=min_records)

@@ -10,7 +10,9 @@ presorted columns of n rows:
     w    (T, n) f32      bag weight per row
     y    (n,)   f32      class id (classification) or target (regression)
     cand (T, m, L1) bool candidate mask (leaf 0 = False)
-    totals (T, L1, S)    the level's per-leaf stat totals
+    totals (T, L1, S)    the level's per-leaf stat totals: int32 class
+                         counts (classification) or float32 sums
+                         (regression)
     -> gain, thr (T, m, L1) f32: best split per (tree, column, leaf)
 
 CUDA source: `repro_torch/csrc/split_scan.cu`, which states the bound and
@@ -23,8 +25,10 @@ frontier width (`state_layout`).  `split_scan` launches it for CUDA
 tensors and takes the plain version only for CPU tensors;
 `split_scan_plain` is the Pallas kernel's own recurrence in row blocks of
 torch ops (`splits.scan_supersplit`).
-Binary classification gains are bit-equal between the two (integer
-prefixes, the same operation order).  With more classes, entropy or
+Classification prefixes are int32 class counts in both, exact to 2^31,
+each converted to float32 once where a gain is computed.  Binary
+classification gains are bit-equal between the two at any row count
+(integer prefixes, the same operation order).  With more classes, entropy or
 regression they agree to float32 rounding of the impurity terms, which
 are as large as the leaf's stat sums: |Δgain| <= 1e-6 · max|totals| (the
 class sums are reduced in another order, regression prefixes are summed
@@ -94,7 +98,12 @@ def _lib():
     return lib
 
 
-def _check_inputs(vals, sidx, leaf, w, y, cand, totals):
+def totals_dtype(task: str) -> torch.dtype:
+    """The kernel's stat type: int32 class counts, or float32 sums."""
+    return torch.int32 if task == "classification" else torch.float32
+
+
+def _check_inputs(vals, sidx, leaf, w, y, cand, totals, task):
     T, n = leaf.shape
     m = vals.shape[0]
     L1, S = totals.shape[-2], totals.shape[-1]
@@ -104,7 +113,7 @@ def _check_inputs(vals, sidx, leaf, w, y, cand, totals):
               "w": (w, torch.float32, (T, n)),
               "y": (y, torch.float32, (n,)),
               "cand": (cand, torch.bool, (T, m, L1)),
-              "totals": (totals, torch.float32, (T, L1, S))}
+              "totals": (totals, totals_dtype(task), (T, L1, S))}
     for name, (t, dtype, shape) in expect.items():
         if t.dtype != dtype or tuple(t.shape) != shape:
             raise ValueError(f"split_scan: {name} must be {dtype} {shape}, "
@@ -128,7 +137,7 @@ def split_scan(vals, sidx, leaf, w, y, cand, totals, *, impurity="gini",
                                 min_records=min_records)
     if vals.device.type != "cuda":
         raise ValueError(f"split_scan runs on CUDA or CPU, not {vals.device}")
-    _check_inputs(vals, sidx, leaf, w, y, cand, totals)
+    _check_inputs(vals, sidx, leaf, w, y, cand, totals, task)
     T, n = leaf.shape
     m = vals.shape[0]
     L1, S = totals.shape[-2], totals.shape[-1]
@@ -138,7 +147,7 @@ def split_scan(vals, sidx, leaf, w, y, cand, totals, *, impurity="gini",
                          f"kernel takes")
     nc, chunk = chunking(n, T * m, L1, S)
     dev = vals.device
-    csum = torch.empty((T, m, nc, L1, S), dtype=torch.float32, device=dev)
+    csum = torch.empty((T, m, nc, L1, S), dtype=totals.dtype, device=dev)
     clast, cgain, cthr = (torch.empty((T, m, nc, L1), dtype=torch.float32,
                                       device=dev) for _ in range(3))
     state = torch.empty((T, n, 4), dtype=torch.int32, device=dev)

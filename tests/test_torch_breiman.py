@@ -206,7 +206,7 @@ def test_breiman_cuda_matches_plain(cuda, name, V, C, min_records, impurity):
     tables, cand = _case(name, V, C)
     before = breiman.launches
     scored = int(breiman.scored_counter(cuda).item())
-    tables, cand = tables.to(cuda), cand.to(cuda)
+    tables, cand = tables.to(cuda, torch.int32), cand.to(cuda)
     g, mk = breiman.breiman(tables, cand, impurity=impurity,
                             min_records=min_records)
     want_g, want_mk = breiman.breiman_plain(tables, cand, impurity=impurity,
@@ -226,7 +226,7 @@ def test_breiman_cuda_wide_tables_and_many_segments(cuda):
     of 513 leaves, with segments walked several to a block."""
     rng = np.random.default_rng(7)
     T, m, L1, V = 2, 2, 513, 10000
-    t = rng.integers(0, 3, size=(T, m, L1, V, 2)).astype(np.float32)
+    t = rng.integers(0, 3, size=(T, m, L1, V, 2)).astype(np.int32)
     t *= rng.random((T, m, L1, V, 1)) < 0.3
     tables = torch.tensor(t)
     cand = torch.tensor(rng.random((T, m, L1)) < 0.3)
@@ -277,7 +277,7 @@ def _big_counts(V, S, seed, T=2, m=3, L1=9, top=4000):
     """Integer class counts up to `top` (squares and entropy terms that
     round by order; a segment's total below 2^24)."""
     rng = np.random.default_rng(seed)
-    t = rng.integers(0, top, size=(T, m, L1, V, S)).astype(np.float32)
+    t = rng.integers(0, top, size=(T, m, L1, V, S)).astype(np.int32)
     t *= rng.random((T, m, L1, V, 1)) < 0.6
     cand = rng.random((T, m, L1)) < 0.8
     return torch.tensor(t), torch.tensor(cand)
@@ -308,7 +308,7 @@ def test_breiman_cuda_wide_arity(cuda, V, S):
     2, 5 and 20 classes."""
     rng = np.random.default_rng(V + S)
     T, m, L1 = 2, 2, 9
-    t = rng.integers(0, 3, size=(T, m, L1, V, S)).astype(np.float32)
+    t = rng.integers(0, 3, size=(T, m, L1, V, S)).astype(np.int32)
     t *= rng.random((T, m, L1, V, 1)) < 0.3
     tables = torch.tensor(t).to(cuda)
     cand = torch.tensor(rng.random((T, m, L1)) < 0.6).to(cuda)
