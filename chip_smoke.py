@@ -26,14 +26,18 @@ Phases, each fatal on failure:
      cat_hist and breiman on the inputs of every level of one tree batch
      of the exact fit of phase 3, each held against its plain version
      (bit-equal) and timed; feat_hist on the inputs of every level of one
-     tree batch of fit (b) below;
+     tree batch of fit (b) below; the Poisson bag kernel at 2^23 rows (T
+     = 1 and 2) and 3·2^24 (T = 1), bit-equal to the plain loop on the
+     card and timed beside it and its bound, and its log equal to
+     torch.log over all 2^23 uniforms (`--bag` runs phases 0, 1 and this
+     check alone);
   3. train `RandomForest(TreeParams(max_depth=10, backend="kernel"),
      num_trees=4, tree_batch=2)` on 2^23 Leo-shaped rows (3 numeric + 79
      categorical columns, arities log-spaced 2..10,000) made with numpy
      from --seed, with the launch counters set to 0 just before and read
-     just after (split_scan, cat_hist and breiman must launch; the share
-     of segments breiman scored is printed); a second identical fit must
-     grow identical trees;
+     just after (split_scan, cat_hist, breiman and bagging must launch;
+     the share of segments breiman scored is printed); a second identical
+     fit must grow identical trees;
   4. predict 2^20 held-out rows, print the AUC, check a save/load round
      trip, check that small fits on the card (exact, and hist with
      subtraction, classification and regression; entropy on the kernel
@@ -227,6 +231,8 @@ from pathlib import Path
 ROOT = Path(__file__).resolve().parent
 HBM_BYTES_PER_S = 3.35e12        # H100 SXM HBM3
 FP32_FLOP_PER_S = 67e12          # H100 SXM fp32, outside the tensor cores
+INT32_OP_PER_S = 16.7e12         # H100 SXM int32: 64 lanes, 132 SMs, 1.98 GHz
+BAG_SHAPES = ((1 << 23, 1), (1 << 23, 2), (3 << 24, 1))  # (n, T) of the draw
 TIMED_RUNS = 5
 TREES, TREE_BATCH = 4, 2         # the phase-3 and phase-5 forests
 TEST_ROWS = 1 << 20              # held-out rows for phases 4 and 5
@@ -1148,6 +1154,56 @@ def compare_hist_levels(new: list, old: list, label: str) -> None:
         f"{sum(b['ms'] for b in old):.3f} ms")
 
 
+def bag_main_shapes(args, dev) -> dict:
+    """The Poisson bag kernel at the main path's shapes (BAG_SHAPES: 2^23
+    rows at T = 1 and 2, one card's Leo share of 3·2^24 at T = 1), each
+    draw bit-equal to the plain loop on the card, one launch a call, timed
+    beside the plain loop and the bound; and the kernel's log equal to
+    torch.log over all 2^23 uniforms a draw can give."""
+    import torch
+    from repro_torch.core import prng
+    from repro_torch.kernels import bagging as bk
+    k = torch.arange(bk.UNIFORMS, dtype=torch.int32, device=dev)
+    u = (k | 0x3F800000).view(torch.float32) - 1.0       # bits k << 9
+    diff = int((bk.uniform_log(dev).view(torch.int32)
+                != torch.log(u).view(torch.int32)).sum().item())
+    del k, u
+    if diff:
+        fail(f"bagging: the kernel's log differs from torch.log at {diff} "
+             f"of {bk.UNIFORMS} uniforms")
+    log(f"  bagging log == torch.log over all {bk.UNIFORMS} uniforms")
+    key = prng.prng_key(args.seed)
+    out = {}
+    for n, T in BAG_SHAPES:
+        trees = range(7, 7 + T)
+        launches = bk.launches
+        got = bk.poisson(key, trees, n, dev)
+        torch.cuda.synchronize()
+        if bk.launches != launches + 1:
+            fail(f"bagging n={n} T={T}: {bk.launches - launches} launches")
+        want = bk.poisson_plain(key, trees, n, dev)
+        if not torch.equal(got, want):
+            bad = int((got != want).sum().item())
+            fail(f"bagging n={n} T={T}: {bad} counts differ from the plain "
+                 f"loop's")
+        passes = T * n + int(got.sum(dtype=torch.float64).item())
+        top = int(got.max().item())
+        del got, want
+        t_bytes = bk.bound_bytes(T, n) / HBM_BYTES_PER_S * 1e3
+        t_ops = bk.bound_int_ops(passes) / INT32_OP_PER_S * 1e3
+        row = dict(n=n, T=T, passes=passes, max_count=top,
+                   ms=cuda_ms(lambda: bk.poisson(key, trees, n, dev)),
+                   plain_ms=cuda_ms(lambda: bk.poisson_plain(key, trees, n,
+                                                             dev), runs=1),
+                   bound_ms=max(t_bytes, t_ops),
+                   bound_by="bytes" if t_bytes >= t_ops else "operations")
+        row["host_ms"] = host_ms(lambda: bk.poisson(key, trees, n, dev))
+        log(f"  bagging main-path shape, bit-equal {json.dumps(row)}")
+        out[f"{n}x{T}"] = row
+        torch.cuda.empty_cache()
+    return out
+
+
 def phase2_main_shapes(args, dev, ds):
     """Both kernels at the shapes the deepest level of the main path gives
     them: the training columns, L1 = 513 leaves, V = 10,000."""
@@ -1205,6 +1261,7 @@ def phase2_main_shapes(args, dev, ds):
     del cat_cols, leaf, w, y
     torch.cuda.empty_cache()
     rows["breiman"] = breiman_main_shapes(args, dev, ds)
+    rows["bagging"] = bag_main_shapes(args, dev)
     return rows
 
 
@@ -1324,13 +1381,14 @@ def phase3(args, dev, ds):
     must launch; the share of (tree, column, leaf) segments breiman scored
     (candidates) of those it was launched over is logged."""
     from repro_torch.core import tree as tree_lib
-    from repro_torch.kernels import breiman, cat_hist, split_scan
+    from repro_torch.kernels import bagging, breiman, cat_hist, split_scan
     params = tree_lib.TreeParams(max_depth=args.depth, backend="kernel")
     scored0 = int(breiman.scored_counter(dev).item())
     segments0 = breiman.segments
     out = run_fit(args, ds, params, {"split_scan": split_scan,
                                      "cat_hist": cat_hist,
-                                     "breiman": breiman}, "exact")
+                                     "breiman": breiman,
+                                     "bagging": bagging}, "exact")
     scored = int(breiman.scored_counter(dev).item()) - scored0
     segments = breiman.segments - segments0
     out[1]["breiman_engagement"] = dict(scored=scored, segments=segments,
@@ -4468,6 +4526,9 @@ def main() -> int:
     ap.add_argument("--exact-levels", action="store_true",
                     help="build, then only the per-level kernel checks and "
                          "times on the exact fit's inputs (development)")
+    ap.add_argument("--bag", action="store_true",
+                    help="build, then only the Poisson bag kernel's checks "
+                         "and times at the main path's shapes (development)")
     ap.add_argument("--hist-levels", action="store_true",
                     help="build, then only feat_hist on the inputs of every "
                          "level of fit (b) (development)")
@@ -4565,6 +4626,10 @@ def main() -> int:
         return 0
 
     log("phase 2: kernels against their plain versions")
+    if args.bag:
+        bag_main_shapes(args, dev)
+        log(f"  total {time.perf_counter() - t_start:.1f} s")
+        return 0
     n_all = (1 << args.train_log2n) + TEST_ROWS
     cut = 1 << args.train_log2n
     from repro_torch.core.dataset import from_numpy

@@ -15,6 +15,7 @@ from __future__ import annotations
 import torch
 
 from repro_torch.core import prng
+from repro_torch.kernels import bagging as bag_kernel
 
 
 def _base_key(seed, device) -> torch.Tensor:
@@ -35,12 +36,14 @@ def bag_counts_forest(seed, tree_indices, n: int, mode: str = "poisson",
 
     Row t equals `bag_counts(seed, tree_indices[t], n, mode)` bit for bit:
     the fold-in chain is elementwise, so batching draws nothing extra.
+    Poisson counts on a CUDA device come from one launch of the bagging
+    kernel (`kernels/bagging.py`), on the CPU from `prng.poisson_knuth`.
     """
+    if mode == "poisson":
+        return bag_kernel.poisson(_base_key(seed, "cpu"), tree_indices, n,
+                                  device)
     tidx = torch.as_tensor(list(tree_indices), dtype=torch.int64,
                            device=device)
-    if mode == "poisson":
-        keys = prng.fold_in(_base_key(seed, device)[None, :], tidx)
-        return prng.poisson_knuth(keys, 1.0, (n,)).to(torch.float32)
     if mode == "none":
         return torch.ones((len(tidx), n), dtype=torch.float32, device=device)
     if mode == "multinomial":

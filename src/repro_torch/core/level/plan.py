@@ -25,10 +25,11 @@ Each part of a level runs inside a `record_function` range named
 attributes the level's device time to its parts; outside a profiler the
 ranges cost a few microseconds per level.  The forest driver names its
 own steps the same way: `fit.forest` around each fit, with `fit.copy_in`,
-`fit.presort`, `fit.quantize`, `fit.bagging`, `fit.prune`, `fit.assemble`
-and `fit.pack` inside it (`core/forest.py`, `core/tree.py`); the streamed
-driver's chunk pass runs in `stream.read`, `stream.stage` and
-`stream.fetch`, and its host bookkeeping in `level.book`.
+`fit.presort`, `fit.quantize`, `fit.bagging` (the bag draw itself in
+`fit.bag_draw`), `fit.prune`, `fit.assemble` and `fit.pack` inside it
+(`core/forest.py`, `core/tree.py`); the streamed driver's chunk pass runs
+in `stream.read`, `stream.stage` and `stream.fetch`, and its host
+bookkeeping in `level.book`.
 """
 from __future__ import annotations
 

@@ -11,7 +11,8 @@ port's own copy of the pieces the reference uses, bit for bit, under
   * `fold_in`, `split` — the partitionable (fold-like) key derivations;
   * `uniform` — float32 in [0, 1) from the top 23 random bits;
   * `randint` — `jax.random.randint` for int32 draws in [lo, hi);
-  * `poisson_knuth` — `jax.random.poisson` for rate < 10: Knuth's loop.
+  * `poisson_knuth` — `jax.random.poisson` for rate < 10: Knuth's loop
+    (on a CUDA device the bag draw runs `kernels/bagging.py` instead).
 
 A key is an int64 tensor `(..., 2)` holding two uint32 words; uint32
 arithmetic runs in int64 with `& 0xFFFFFFFF`, on whatever device the key

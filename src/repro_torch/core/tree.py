@@ -466,7 +466,8 @@ def build_forest(
 
     # per-tree stacked state: bootstrap weights, stats, PRNG keys
     with record_function("fit.bagging"):
-        w = bagging.bag_counts_forest(seed, tidx, n, params.bagging, dev)
+        with record_function("fit.bag_draw"):
+            w = bagging.bag_counts_forest(seed, tidx, n, params.bagging, dev)
         stats = splits.row_stats(labels, w, num_classes, task)   # (T, n, S)
     S_dim = int(stats.shape[-1])
     fkeys = _forest_keys(seed, tidx, dev)
@@ -876,8 +877,10 @@ def build_forest_streamed(
         w_np = np.empty((T, n), np.float32)
         with record_function("fit.bagging"):
             for i, t in enumerate(tidx):
-                w_np[i] = bagging.bag_counts(seed, t, n, params.bagging,
-                                             dev).cpu().numpy()
+                with record_function("fit.bag_draw"):
+                    w_t = bagging.bag_counts(seed, t, n, params.bagging, dev)
+                w_np[i] = w_t.cpu().numpy()
+                del w_t             # freed before the levels run
     plan.check_counts(w_np.sum(1, dtype=np.float64))
     fkeys = _forest_keys(seed, tidx, dev)
 

@@ -30,7 +30,7 @@ BUILD_DIR = Path(__file__).resolve().parents[3] / "build" / "repro_torch"
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC", "-fmad=false",
               "-Xptxas=-v")
-SOURCES = ("split_scan", "cat_hist", "feat_hist", "breiman")
+SOURCES = ("split_scan", "cat_hist", "feat_hist", "breiman", "bagging")
 
 _LIBS: dict[str, ctypes.CDLL] = {}
 _LOCK = threading.Lock()

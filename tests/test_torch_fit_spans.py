@@ -1,11 +1,12 @@
 """The forest driver's `record_function` ranges on the CPU.
 
 `RandomForest.fit` runs inside `fit.forest`, with its copy-in, presort,
-quantizer (hist mode), tree assembly (one range per tree batch) and
-packing in ranges nested there; `fit_streamed` opens `fit.forest`,
-`fit.assemble` and `fit.pack` the same way, and runs its host book under
-`level.book`: the node values after each chunk pass and the tree growth
-after each scored level.  The ranges only annotate: a profiled fit grows
+quantizer (hist mode), bagging (the bag draw itself in `fit.bag_draw`),
+tree assembly (one range per tree batch) and packing in ranges nested
+there; `fit_streamed` opens `fit.forest`, `fit.bagging` (a `fit.bag_draw`
+a tree), `fit.assemble` and `fit.pack` the same way, and runs its host
+book under `level.book`: the node values after each chunk pass and the
+tree growth after each scored level.  The ranges only annotate: a profiled fit grows
 the trees an unprofiled one grows.
 """
 import collections
@@ -58,6 +59,15 @@ def _assert_nested_in_one_forest(ranges):
         assert lo <= a <= b <= hi, nm
 
 
+def _assert_draws_inside_bagging(ranges, draws):
+    """`draws` fit.bag_draw ranges, each inside a fit.bagging range."""
+    outer = [(a, b) for a, b, nm in ranges if nm == "fit.bagging"]
+    inner = [(a, b) for a, b, nm in ranges if nm == "fit.bag_draw"]
+    assert len(inner) == draws
+    for a, b in inner:
+        assert any(lo <= a <= b <= hi for lo, hi in outer), (a, b)
+
+
 @pytest.mark.parametrize("mode", ["exact", "hist"])
 def test_fit_names_its_own_steps(mode):
     ds = synthetic.make_tabular("xor", 500, 3, 2, 2, seed=4)
@@ -70,6 +80,7 @@ def test_fit_names_its_own_steps(mode):
             n["fit.assemble"], n["fit.pack"]) == \
         (1, 1, int(mode == "hist"), batches, 1)
     assert n["fit.bagging"] == batches and n["level.book"] >= batches
+    _assert_draws_inside_bagging(ranges, batches)
     _assert_same_forest(rf, _rf(**params).fit(ds))
 
 
@@ -82,6 +93,8 @@ def test_fit_streamed_names_its_host_book():
     n = collections.Counter(nm for _, _, nm in ranges)
     assert n["fit.copy_in"] == n["fit.presort"] == n["fit.quantize"] == 0
     assert (n["fit.assemble"], n["fit.pack"]) == (-(-TREES // BATCH), 1)
+    assert n["fit.bagging"] == -(-TREES // BATCH)
+    _assert_draws_inside_bagging(ranges, TREES)     # one draw a tree
     # in time order, each chunk pass (a run of stream.fetch) is followed
     # by the node values' level.book, and each scored level's host fetch
     # by the tree growth's level.book
