@@ -27,7 +27,7 @@ from torch.profiler import record_function
 from repro_torch.core import (atomicio, bagging, checkpoint as checkpoint_lib,
                               importance, presort, tree as tree_lib)
 from repro_torch.core.dataset import RowSource, TabularDataset
-from repro_torch.core.level.engines import SplitEngine
+from repro_torch.core.level.engines import LegacyFn, resolve_engine
 from repro_torch.device import resolve_device
 
 
@@ -239,12 +239,14 @@ class RandomForest:
         `repro_torch.core.distributed`, called in every rank of the mesh
         with the same arguments.
 
-        `supersplit_fn` is the reference's legacy API: a `SplitEngine`
-        passed there is taken as the engine; a bare closure (see
-        `level.LegacyFn` for its two signatures) warns and builds the trees
-        one at a time (`tree_batch = 1`, `tree.build_tree`), since it sees
-        one tree's arrays.  The trees are the same either way.  Passing
-        both `supersplit_fn` and `engine` raises ValueError.
+        `supersplit_fn` is the reference's legacy API
+        (`level.engines.resolve_engine`): a `SplitEngine` passed there is
+        taken as the engine; a bare closure (see `level.LegacyFn` for its
+        two signatures), like a `LegacyFn` passed as `engine`, warns and
+        builds the trees one at a time (`tree_batch = 1`,
+        `tree.build_tree`), since it sees one tree's arrays.  The trees
+        are the same either way.  Passing both `supersplit_fn` and `engine`
+        raises ValueError.
 
         The fit runs inside the `record_function` range `fit.forest`, and
         its own steps in ranges nested there: `fit.copy_in` (the host
@@ -258,6 +260,8 @@ class RandomForest:
                 "fit() trains from a fully materialized TabularDataset; "
                 "for a RowSource (out-of-core bin cache) use "
                 "fit_streamed(source)")
+        engine = resolve_engine(engine, supersplit_fn,
+                                hist=self.params.split_mode == "hist")
         with record_function("fit.forest"):
             dev = resolve_device(self.device)
             ds.validate()
@@ -291,16 +295,9 @@ class RandomForest:
                     bin_of, bin_edges = presort.quantize(
                         num_cols.t(), sorted_vals, self.params.num_bins)
                 kw.update(bin_of=bin_of, bin_edges=bin_edges)
-            if supersplit_fn is not None and engine is not None:
-                raise ValueError(
-                    "pass either engine= (a SplitEngine) or supersplit_fn=, "
-                    "not both — one of them would be silently ignored")
-            if isinstance(supersplit_fn, SplitEngine):
-                # the engine API replaces supersplit_fn; accept it here too
-                kw["engine"] = supersplit_fn
-                supersplit_fn = None
             tb = self._resolve_tree_batch(ds)
-            if supersplit_fn is not None:
+            per_tree = isinstance(engine, LegacyFn)
+            if per_tree:
                 warnings.warn(
                     "legacy supersplit_fn closures force the per-tree "
                     "builder (tree_batch=1, one level step per depth PER "
@@ -310,9 +307,8 @@ class RandomForest:
                 tb = 1                      # per-tree-only configuration
             self.trees, self.level_stats = [], []
             for lo in range(0, self.num_trees, tb):
-                if supersplit_fn is not None:
-                    tr, stats = tree_lib.build_tree(
-                        tree_idx=lo, supersplit_fn=supersplit_fn, **kw)
+                if per_tree:
+                    tr, stats = tree_lib.build_tree(tree_idx=lo, **kw)
                     trees, stats = [tr], [stats]
                 else:
                     trees, stats = tree_lib.build_forest(

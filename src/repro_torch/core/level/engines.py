@@ -433,3 +433,19 @@ class LegacyFn(SplitEngine):                    # reference's
         else:
             g, thr = self.fn(inp.sorted_vals, inp.sorted_idx, *rows)
         return g[None], thr[None], None
+
+
+def resolve_engine(engine, supersplit_fn, hist: bool):
+    """The numeric engine of a fit given `engine=` and the reference's
+    legacy `supersplit_fn=`: a `SplitEngine` passed as `supersplit_fn` is
+    taken as the engine, a bare closure is wrapped in `LegacyFn` (the hist
+    signature when `hist`).  Passing both raises ValueError."""
+    if supersplit_fn is None:
+        return engine
+    if engine is not None:
+        raise ValueError(
+            "pass either engine= (a SplitEngine) or supersplit_fn=, "
+            "not both — one of them would be silently ignored")
+    if isinstance(supersplit_fn, SplitEngine):
+        return supersplit_fn
+    return LegacyFn(fn=supersplit_fn, hist=hist)

@@ -30,7 +30,8 @@ from torch.profiler import record_function
 from repro_torch.core import (bagging, checkpoint as checkpoint_lib,
                               class_list, dataset as dataset_lib, presort,
                               prng, pruning, splits)
-from repro_torch.core.level.engines import LegacyFn, LevelInputs, SplitEngine
+from repro_torch.core.level.engines import (LegacyFn, LevelInputs,
+                                            SplitEngine, resolve_engine)
 from repro_torch.core.level.plan import (_fused_level_step_batched,
                                          _leaf_totals, _pad_leaves,
                                          _stream_chunk_step,
@@ -154,15 +155,9 @@ class _NodeAccum:
     level and `_assemble_tree` freezes the lists into numpy arrays."""
 
     def __init__(self, num_classes: int, task: str):
-        self.feature: list = []
-        self.threshold: list = []
-        self.is_cat: list = []
-        self.cat_mask: list = []
-        self.children: list = []
-        self.value: list = []
-        self.n_node: list = []
-        self.gain: list = []
-        self.depth: list = []
+        (self.feature, self.threshold, self.is_cat, self.cat_mask,
+         self.children, self.value, self.n_node, self.gain,
+         self.depth) = ([] for _ in range(9))
         self._C = max(num_classes, 2) if task == "classification" else 1
 
     def new_node(self, depth: int) -> int:
@@ -194,14 +189,15 @@ def _grow_level(acc: _NodeAccum, open_nodes: list, host: dict, L: int,
     """Alg. 2 step 8 for ONE tree: grow the flat tree from a level struct.
 
     `host` holds the fetched per-leaf arrays of one tree (best_feat /
-    best_gain / thr / mask / will_split, each (Lp+1,)-indexed by leaf id).
+    best_gain / thr / will_split, and mask where a categorical split can
+    win, each (Lp+1,)-indexed by leaf id).
     `edges_np` ((m_num, B) numpy) is hist mode's threshold decode table:
     the level step reports the winning BIN INDEX, and the node records
     `edges[col, cut]`.  Returns (next level's open node ids, whether any
     leaf split).
     """
     bf, bg = host["best_feat"], host["best_gain"]
-    thr, mask, ws = host["thr"], host["mask"], host["will_split"]
+    thr, mask, ws = host["thr"], host.get("mask"), host["will_split"]
     next_open: list[int] = []
     any_split = False
     for h in range(1, L + 1):
@@ -267,6 +263,90 @@ def _assemble_tree(acc: _NodeAccum, max_arity, m_num, task) -> Tree:
         gain=np.asarray(acc.gain, np.float32),
         depth=np.asarray(acc.depth, np.int32),
         m_num=m_num, task=task)
+
+
+class _Book:
+    """The host's book of one tree batch, kept by both forest drivers: per
+    tree the flat-tree accumulator, the node of each open leaf (leaf h ->
+    node id), the frontier size and the `LevelStats` log (`FIELDS`, what a
+    streamed checkpoint stores).  `edges_np`: hist mode's threshold decode
+    table, or None where thresholds are floats."""
+
+    FIELDS = ("Ls", "accs", "open_nodes", "stats_logs")
+
+    def __init__(self, T: int, plan, params, edges_np, collect_stats: bool):
+        self.plan, self.params, self.edges_np = plan, params, edges_np
+        self.collect_stats = collect_stats
+        self.accs = [_NodeAccum(plan.num_classes, plan.task) for _ in range(T)]
+        self.open_nodes = [[a.new_node(0)] for a in self.accs]
+        self.Ls, self.stats_logs = [1] * T, [[] for _ in range(T)]
+
+    def fields(self) -> dict:
+        return {k: getattr(self, k) for k in self.FIELDS}
+
+    def restore(self, state: dict) -> None:
+        vars(self).update((k, state[k]) for k in self.FIELDS)
+
+    def splittable(self, totals: np.ndarray, at_max_depth: bool):
+        """A level's per-leaf in-bag weight (T, Lp+1) from its leaf totals
+        (T, Lp+1, S), its splittable mask over the current frontier, and
+        per tree whether any of its leaves is splittable."""
+        counts = (totals.sum(-1) if self.plan.task == "classification"
+                  else totals[..., 0])
+        sp = np.zeros(counts.shape, bool)
+        if not at_max_depth:
+            least = 2 * self.params.min_records
+            for t, L in enumerate(self.Ls):
+                sp[t, 1:L + 1] = counts[t, 1:L + 1] >= least
+        return counts, sp, sp.any(1).tolist()
+
+    def write_values(self, Ls, counts, totals) -> None:
+        """Node values of one level's open nodes from its leaf totals."""
+        task = self.plan.task
+        for acc, nodes, L, cnt, tot in zip(self.accs, self.open_nodes, Ls,
+                                           counts, totals):
+            for h in range(1, L + 1):
+                acc.set_value(nodes[h - 1], tot[h], cnt[h], task)
+
+    def grow(self, depth, Ls, counts, totals, host, gate, n, wall) -> None:
+        """Level `depth`'s splits in each tree t with `gate[t]`:
+        `_grow_level`, the level's `LevelStats` record (with
+        `collect_stats`) and the next level's open nodes."""
+        p, params = self.plan, self.params
+        m = p.m_num + p.m_cat
+        keys = [k for k in ("best_feat", "best_gain", "thr", "mask",
+                            "will_split") if k in host]
+        for t, L in enumerate(Ls):
+            if not gate[t]:
+                continue
+            next_open, any_split = _grow_level(
+                self.accs[t], self.open_nodes[t],
+                {k: host[k][t] for k in keys}, L, p.m_num, depth,
+                edges_np=self.edges_np)
+            if self.collect_stats:
+                Lp = _pad_leaves(L, params.leaf_pad)
+                passes = int(min(p.m_prime * (1 if p.usb else L), m))
+                # under subtraction only the packed build slots are built
+                width = Lp // 2 + 1 if p.carries_tables and depth else Lp + 1
+                self.stats_logs[t].append(LevelStats(
+                    depth=depth, open_leaves=L,
+                    network_bits_bitmap=int(counts[t, 1:L + 1].sum()),
+                    network_bits_supersplit=int(m * (Lp + 1) * 64),
+                    class_list_bits=class_list.storage_bits(n, L),
+                    feature_passes=passes, rows_scanned=n * passes,
+                    wall_seconds=wall,
+                    hist_table_bytes=(p.m_num * width * p.num_bins
+                                      * totals.shape[-1] * 4
+                                      if params.split_mode == "hist" else 0),
+                    max_class_weight=(int(totals[t, 1:L + 1].max())
+                                      if p.task == "classification" else 0)))
+            if any_split:
+                self.open_nodes[t] = next_open
+
+    def next_sizes(self, will_split, participate) -> None:
+        """The next frontier per tree: two children per split leaf."""
+        self.Ls = [2 * int(will_split[t, 1:L + 1].sum()) if participate[t]
+                   else 0 for t, L in enumerate(self.Ls)]
 
 
 # ---------------------------------------------------------------------------
@@ -427,12 +507,11 @@ def build_forest(
     n = int(labels.shape[0])
     m_num = int(sorted_vals.shape[0]) if sorted_vals.numel() else 0
     m_cat = len(arities)
-    m = m_num + m_cat
     max_arity = max(arities) if arities else 1
-    m_prime = _num_candidates(params, m)
     plan = make_plan(params, m_num=m_num, m_cat=m_cat, max_arity=max_arity,
-                     num_classes=num_classes, m_prime=m_prime, engine=engine,
-                     cat_engine=cat_engine)
+                     num_classes=num_classes,
+                     m_prime=_num_candidates(params, m_num + m_cat),
+                     engine=engine, cat_engine=cat_engine)
     legacy = isinstance(plan.numeric, LegacyFn)
     if legacy and not _per_tree:
         raise ValueError(
@@ -440,7 +519,6 @@ def build_forest(
             "level.SplitEngine (engine=...) or use build_tree")
     step_calls = _STEP_CALLS if legacy else _BATCH_STEP_CALLS
     task = params.task
-    hist = params.split_mode == "hist"
     dev = labels.device
     tidx = [int(t) for t in tree_indices]
     T = len(tidx)
@@ -461,7 +539,7 @@ def build_forest(
     # order: the leaf-ordered layout starts as the presort, which the
     # level step then reads in its place
     ord_idx = sorted_idx[None].expand(T, m_num, n) if use_ord else None
-    if use_ord or hist:
+    if use_ord or params.split_mode == "hist":
         sorted_vals = sorted_idx = None
 
     # per-tree stacked state: bootstrap weights, stats, PRNG keys
@@ -469,71 +547,26 @@ def build_forest(
         with record_function("fit.bag_draw"):
             w = bagging.bag_counts_forest(seed, tidx, n, params.bagging, dev)
         stats = splits.row_stats(labels, w, num_classes, task)   # (T, n, S)
-    S_dim = int(stats.shape[-1])
     fkeys = _forest_keys(seed, tidx, dev)
-
-    def cnt_np(t):
-        return t.sum(-1) if task == "classification" else t[..., 0]
-
-    def max_class(totals_d, t, L):
-        return int(totals_d[t, 1:L + 1].max()) \
-            if task == "classification" and L else 0
-
-    accs = [_NodeAccum(num_classes, task) for _ in range(T)]
-    open_nodes = [[a.new_node(0)] for a in accs]  # per tree: leaf h -> node
     leaf_of = torch.ones((T, n), dtype=torch.int32, device=dev)
-    stats_logs: list[list[LevelStats]] = [[] for _ in range(T)]
+    book = _Book(T, plan, params, edges_np, collect_stats)
 
-    def write_values(Ls_d, counts_d, totals_d):
-        """Node values of one level's open nodes from its leaf totals."""
-        for t in range(T):
-            for h in range(1, Ls_d[t] + 1):
-                accs[t].set_value(open_nodes[t][h - 1], totals_d[t, h],
-                                  counts_d[t, h], task)
-
-    def book(depth_d, Ls_d, counts_d, totals_d, host_d, part_d, n_d, wall_d):
-        """Level d's host bookkeeping, deferred until level d+1 has been
-        dispatched: its node values, then `_grow_level` per tree (each
+    def drain(pending):
+        """Level d's book, run once level d+1 has been dispatched (each
         tree's order is the unpipelined loop's, so its nodes are too)."""
-        write_values(Ls_d, counts_d, totals_d)
-        for t in range(T):
-            if not part_d[t]:
-                continue
-            L = Ls_d[t]
-            host_t = {k: host_d[k][t] for k in
-                      ("best_feat", "best_gain", "thr", "mask", "will_split")}
-            next_open, any_split = _grow_level(
-                accs[t], open_nodes[t], host_t, L, m_num, depth_d,
-                edges_np=edges_np)
-            if collect_stats:
-                Lp_t = _pad_leaves(L, params.leaf_pad)
-                passes = int(min(m_prime * (1 if params.usb else L), m))
-                tbl_w = (Lp_t // 2 + 1) if carries and depth_d > 0 \
-                    else Lp_t + 1
-                stats_logs[t].append(LevelStats(
-                    depth=depth_d, open_leaves=L,
-                    network_bits_bitmap=int(counts_d[t, 1:L + 1].sum()),
-                    network_bits_supersplit=int(m * (Lp_t + 1) * 64),
-                    class_list_bits=class_list.storage_bits(n_d, L),
-                    feature_passes=passes, rows_scanned=n_d * passes,
-                    wall_seconds=wall_d,
-                    hist_table_bytes=(m_num * tbl_w * params.num_bins
-                                      * S_dim * 4 if hist else 0),
-                    max_class_weight=max_class(totals_d, t, L)))
-            if any_split:
-                open_nodes[t] = next_open
+        with record_function("level.book"):
+            book.write_values(*pending[1:4])
+            book.grow(*pending)
 
     totals_np = None                      # (T, width, S), host
     row_counts_np = None                  # (T, width), host (ord layout)
     closed_np = 0                         # rows closed in EVERY tree
-    Ls = [1] * T                          # current frontier size per tree
     tables = None                         # carried hist tables (device)
-    maps_src = None                       # (ws, key_counts, Ls) of level-1
     pending = None                        # the previous level's book args
     for depth in range(params.max_depth + 1):
-        if max(Ls) == 0:
+        if max(book.Ls) == 0:
             break
-        Lp = _pad_leaves(max(Ls), params.leaf_pad)   # batch-max frontier
+        Lp = _pad_leaves(max(book.Ls), params.leaf_pad)  # batch-max frontier
 
         # carry the leaf totals into the new padding (root: compute once,
         # and refuse a tree whose in-bag weight the counts cannot hold)
@@ -554,31 +587,12 @@ def build_forest(
             k = min(Lp + 1, row_counts_np.shape[1])
             cur_rc[:, :k] = row_counts_np[:, :k]
             row_counts_np = cur_rc
-        counts = cnt_np(totals_np)                   # (T, Lp+1)
-
         # the splittable mask needs this level's totals only; the node
         # values wait for the deferred book
-        at_max_depth = depth >= params.max_depth
-        splittable_p = np.zeros((T, Lp + 1), bool)
-        participate = [False] * T
-        if not at_max_depth:
-            for t in range(T):
-                if Ls[t] == 0:
-                    continue
-                sp = counts[t, 1:Ls[t] + 1] >= 2 * params.min_records
-                if sp.any():
-                    splittable_p[t, 1:Ls[t] + 1] = sp
-                    participate[t] = True
+        counts, splittable_p, participate = book.splittable(
+            totals_np, depth >= params.max_depth)
         if not splittable_p.any():
-            # nothing to dispatch: drain the pipeline, then write the last
-            # frontier's node values
-            if pending is not None:
-                with record_function("level.book"):
-                    book(*pending)
-                pending = None
-            with record_function("level.book"):
-                write_values(Ls, counts, totals_np)
-            break
+            break       # nothing to dispatch: the frontier's values below
 
         # Sprint pruning (paper §3): drop the rows closed in EVERY tree once
         # they reach the threshold.  It runs before this level's step, so
@@ -604,14 +618,15 @@ def build_forest(
         # histogram subtraction: per-tree maps from the previous level's
         # split bitmap + child row counts (smaller child = build slot)
         subtract = bool(carries and tables is not None
-                        and maps_src is not None)
+                        and pending is not None)
         maps = {}
         if subtract:
-            ws_prev, kc_prev, Ls_prev = maps_src
+            _, Ls_prev, _, _, prev = pending[:5]
             mp = np.zeros((3, T, Lp + 1), np.int32)
             for t in range(T):
                 if Ls_prev[t]:
-                    mp[:, t] = _child_maps(ws_prev[t], kc_prev[t],
+                    mp[:, t] = _child_maps(prev["will_split"][t],
+                                           prev["key_counts"][t],
                                            Ls_prev[t], Lp)
             mp = torch.as_tensor(mp, device=dev)
             maps = dict(prev_tables=tables, parent_of=mp[0], sib_of=mp[1],
@@ -638,8 +653,7 @@ def build_forest(
         # then wait for the copy
         wait = _fetch_to_host(dict(struct, next_totals=next_totals))
         if pending is not None:
-            with record_function("level.book"):
-                book(*pending)
+            drain(pending)
         with record_function("level.host_fetch"):
             host = wait()
         wall = time.perf_counter() - t_level
@@ -647,23 +661,19 @@ def build_forest(
         closed_np = int(host["closed_rows"])
         if use_ord or carries:
             row_counts_np = host["key_counts"]
-        if carries:
-            maps_src = (host["will_split"], host["key_counts"], list(Ls))
-
-        # the next frontier needs the split bitmap alone
-        ws = host["will_split"]
-        Ls_next = [2 * int(ws[t, 1:Ls[t] + 1].sum()) if participate[t] else 0
-                   for t in range(T)]
-        pending = (depth, list(Ls), counts, totals_cur, host, participate, n,
+        pending = (depth, book.Ls, counts, totals_cur, host, participate, n,
                    wall)
-        Ls = Ls_next
+        # the next frontier needs the split bitmap alone
+        book.next_sizes(host["will_split"], participate)
 
-    if pending is not None:         # the loop left through max(Ls) == 0
+    if pending is not None:
+        drain(pending)
+    if max(book.Ls):        # the loop left through an unsplittable frontier
         with record_function("level.book"):
-            book(*pending)
+            book.write_values(book.Ls, counts, totals_np)
     with record_function("fit.assemble"):
-        trees = [_assemble_tree(a, max_arity, m_num, task) for a in accs]
-    return trees, stats_logs
+        trees = [_assemble_tree(a, max_arity, m_num, task) for a in book.accs]
+    return trees, book.stats_logs
 
 
 def build_tree(*, tree_idx: int, supersplit_fn=None, engine=None,
@@ -671,19 +681,11 @@ def build_tree(*, tree_idx: int, supersplit_fn=None, engine=None,
     """Train ONE tree: a one-tree `build_forest` (same arguments, with
     `tree_idx` in place of `tree_indices`).
 
-    `supersplit_fn` is the reference's legacy closure API: a bare closure
-    is wrapped in `level.LegacyFn` (the hist signature when
-    `params.split_mode == "hist"`) and its level steps count in
-    `_STEP_CALLS`; a `SplitEngine` passed there is taken as the engine.
-    Passing both it and `engine` raises ValueError."""
-    if supersplit_fn is not None:
-        if engine is not None:
-            raise ValueError(
-                "pass either engine= (a SplitEngine) or supersplit_fn=, "
-                "not both — one of them would be silently ignored")
-        engine = supersplit_fn if isinstance(supersplit_fn, SplitEngine) \
-            else LegacyFn(fn=supersplit_fn,
-                          hist=kw["params"].split_mode == "hist")
+    `supersplit_fn` is the reference's legacy closure API
+    (`level.engines.resolve_engine`); a closure's level steps count in
+    `_STEP_CALLS`."""
+    engine = resolve_engine(engine, supersplit_fn,
+                            hist=kw["params"].split_mode == "hist")
     trees, logs = build_forest(tree_indices=[tree_idx], engine=engine,
                                _per_tree=True, **kw)
     return trees[0], logs[0]
@@ -850,18 +852,14 @@ def build_forest_streamed(
             return done
 
     m_num = source.m_num
-    m_prime = _num_candidates(params, m_num)
     plan = make_plan(dataclasses.replace(params, hist_subtract=False),
                      m_num=m_num, m_cat=0, max_arity=1,
-                     num_classes=source.num_classes, m_prime=m_prime,
-                     engine=engine)
+                     num_classes=source.num_classes,
+                     m_prime=_num_candidates(params, m_num), engine=engine)
     if not plan.numeric.supports_stream:
         raise ValueError(f"engine {plan.numeric!r} does not support chunked "
                          f"accumulation (supports_stream)")
-    task = params.task
-    num_classes = source.num_classes
     n = source.n
-    edges_np = source.edges
     tidx = [int(t) for t in tree_indices]
     T = len(tidx)
     if T < 1:
@@ -884,23 +882,16 @@ def build_forest_streamed(
     plan.check_counts(w_np.sum(1, dtype=np.float64))
     fkeys = _forest_keys(seed, tidx, dev)
 
-    accs = [_NodeAccum(num_classes, task) for _ in range(T)]
-    open_nodes = [[a.new_node(0)] for a in accs]
-    stats_logs: list[list[LevelStats]] = [[] for _ in range(T)]
+    book = _Book(T, plan, params, source.edges, collect_stats)
     leaf_np = np.ones((T, n), np.int32)
     active = None                   # original row ids of the active rows
     n_act = n
-    Ls = [1] * T
     start_depth = 0
     chunk = max(1, int(source.chunk_size))
     rs = plan.row_shards
     # the previous level's decisions, which the chunk steps replay
-    dec = (torch.zeros((T, 1), dtype=torch.int32, device=dev),
-           torch.zeros((T, 1), dtype=torch.float32, device=dev),
-           torch.zeros((T, 1), dtype=torch.int32, device=dev),
-           torch.zeros((T, 1), dtype=torch.int32, device=dev))
-    Lpp = 0
-    S_dim = num_classes
+    dec = tuple(torch.zeros((T, 1), dtype=dt, device=dev) for dt in
+                (torch.int32, torch.float32, torch.int32, torch.int32))
 
     if ck is not None and resume:
         snap = ck.load_snapshot(tidx)
@@ -909,11 +900,9 @@ def build_forest_streamed(
             # stored: they come from the source and the seeded draws as a
             # fresh fit makes them, compacted by the stored row map
             st = checkpoint_lib.unpack_stream_state(
-                snap, num_classes=num_classes, task=task)
+                snap, num_classes=plan.num_classes, task=plan.task)
             start_depth = st["next_depth"]
-            Ls, Lpp = st["Ls"], st["Lpp"]
-            accs, open_nodes = st["accs"], st["open_nodes"]
-            stats_logs = st["stats_logs"]
+            book.restore(st)
             leaf_np, active = st["leaf"], st["active"]
             n_act = leaf_np.shape[1]
             if active is not None:
@@ -927,19 +916,18 @@ def build_forest_streamed(
                     sleep=source.retry_sleep)
 
     for depth in range(start_depth, params.max_depth + 1):
-        if max(Ls) == 0:
+        if max(book.Ls) == 0:
             break
         t_level = time.perf_counter()
-        Lp = _pad_leaves(max(Ls), params.leaf_pad)
-        at_max_depth = depth >= params.max_depth
-        need_tables = not at_max_depth
+        Lp = _pad_leaves(max(book.Ls), params.leaf_pad)
+        need_tables = depth < params.max_depth
 
         # --- chunk pass: reassign, then accumulate ---------------------
         if need_tables:
             acc = plan.numeric.stream_init(T, plan.statics, Lp, dev)
         else:           # the last level: per-leaf stat totals only
-            acc = torch.zeros((T, Lp + 1, S_dim), dtype=torch.float32,
-                              device=dev)
+            acc = torch.zeros((T, Lp + 1, plan.num_classes),
+                              dtype=torch.float32, device=dev)
         # fixed-shape chunks, padded to a row-shard multiple
         C = max(rs, -(-min(chunk, max(n_act, 1)) // rs) * rs)
         stage = _ChunkStage(T, m_num, C, params.num_bins, dev)
@@ -967,25 +955,14 @@ def build_forest_streamed(
         del stage
 
         # --- finalize: merged tables and per-leaf totals -----------------
-        if need_tables:
-            merged, totals_dev = _stream_finalize_step(acc, plan=plan)
-            totals_np = totals_dev.cpu().numpy()
-        else:
-            merged, totals_np = None, acc.cpu().numpy()
+        merged, totals_dev = (_stream_finalize_step(acc, plan=plan)
+                              if need_tables else (None, acc))
+        totals_np = totals_dev.cpu().numpy()
         del acc
-        counts = totals_np.sum(-1)                        # classification
+        counts, splittable_p, participate = book.splittable(
+            totals_np, not need_tables)
         with record_function("level.book"):
-            for t in range(T):
-                for h in range(1, Ls[t] + 1):
-                    accs[t].set_value(open_nodes[t][h - 1], totals_np[t, h],
-                                      counts[t, h], task)
-
-        splittable_p = np.zeros((T, Lp + 1), bool)
-        if not at_max_depth:
-            for t in range(T):
-                if Ls[t]:
-                    splittable_p[t, 1:Ls[t] + 1] = \
-                        counts[t, 1:Ls[t] + 1] >= 2 * params.min_records
+            book.write_values(book.Ls, counts, totals_np)
         if not splittable_p.any():
             break                       # the node values are written
 
@@ -999,43 +976,17 @@ def build_forest_streamed(
                     ("best_feat", "best_gain", "thr", "will_split")}
         dec = (res["feat_of_leaf"], res["thr"], res["new_left"],
                res["new_right"])
-        Lpp = Lp
         wall = time.perf_counter() - t_level
 
-        ws = host["will_split"]
-        no_mask = np.zeros((Lp + 1, 1), bool)             # numeric only
-        Ls_next = [0] * T
         with record_function("level.book"):
-            for t in range(T):
-                if Ls[t] == 0:
-                    continue
-                host_t = {k: host[k][t] for k in
-                          ("best_feat", "best_gain", "thr", "will_split")}
-                host_t["mask"] = no_mask
-                next_open, any_split = _grow_level(
-                    accs[t], open_nodes[t], host_t, Ls[t], m_num, depth,
-                    edges_np=edges_np)
-                if collect_stats:
-                    Lp_t = _pad_leaves(Ls[t], params.leaf_pad)
-                    passes = int(min(m_prime * (1 if params.usb else Ls[t]),
-                                     m_num))
-                    stats_logs[t].append(LevelStats(
-                        depth=depth, open_leaves=Ls[t],
-                        network_bits_bitmap=int(counts[t, 1:Ls[t] + 1].sum()),
-                        network_bits_supersplit=int(m_num * (Lp_t + 1) * 64),
-                        class_list_bits=class_list.storage_bits(n_act, Ls[t]),
-                        feature_passes=passes, rows_scanned=n_act * passes,
-                        wall_seconds=wall,
-                        hist_table_bytes=m_num * (Lp_t + 1) * params.num_bins
-                        * S_dim * 4,
-                        max_class_weight=int(totals_np[t, 1:Ls[t] + 1].max())))
-                if any_split:
-                    open_nodes[t] = next_open
-                Ls_next[t] = 2 * int(ws[t, 1:Ls[t] + 1].sum())
-        Ls = Ls_next
+            # every tree with open leaves logs the level, as the
+            # reference's streamed driver does
+            book.grow(depth, book.Ls, counts, totals_np, host,
+                      [L > 0 for L in book.Ls], n_act, wall)
+            book.next_sizes(host["will_split"], participate)
 
         # --- Sprint pruning on the host: drop rows closed in every tree --
-        if params.prune_closed_frac < 1.0 and n_act > 0 and max(Ls) > 0:
+        if params.prune_closed_frac < 1.0 and n_act > 0 and max(book.Ls) > 0:
             open_any = (leaf_np > 0).any(axis=0)
             closed = n_act - int(open_any.sum())
             if closed > 0 and closed / n_act >= params.prune_closed_frac:
@@ -1051,12 +1002,11 @@ def build_forest_streamed(
         # in between resumes from the previous snapshot
         if ck is not None and depth < params.max_depth:
             ck.save_snapshot(tidx, depth, checkpoint_lib.pack_stream_state(
-                tidx=tidx, depth=depth, Ls=Ls, leaf_np=leaf_np,
-                active=active, dec=dec, Lpp=Lpp, accs=accs,
-                open_nodes=open_nodes, stats_logs=stats_logs))
+                tidx=tidx, depth=depth, leaf_np=leaf_np, active=active,
+                dec=dec, Lpp=Lp, **book.fields()))
 
     with record_function("fit.assemble"):
-        trees = [_assemble_tree(a, 1, m_num, task) for a in accs]
+        trees = [_assemble_tree(a, 1, m_num, plan.task) for a in book.accs]
     if ck is not None:
-        ck.finish_batch(tidx, trees, stats_logs)
-    return trees, stats_logs
+        ck.finish_batch(tidx, trees, book.stats_logs)
+    return trees, book.stats_logs

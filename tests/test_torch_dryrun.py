@@ -118,6 +118,8 @@ json.dump(out, open(sys.argv[1], "w"))
 @pytest.fixture(scope="module")
 def counted(tmp_path_factory):
     out = tmp_path_factory.mktemp("dryrun") / "out.json"
+    # the fake world of 8 runs in this one subprocess, on a thread count
+    # of its own whether or not pytest runs in workers
     r = subprocess.run(
         [sys.executable, "-c", textwrap.dedent(_SCRIPT), str(out)],
         capture_output=True, text=True, timeout=300,

@@ -98,12 +98,16 @@ def test_closure_fit_equals_plain_and_reference(data, mode):
     assert_trees_equal(rlegacy.trees, legacy.trees)
 
 
-def test_engine_and_closure_together_raise(data):
+@pytest.mark.parametrize("route", ["fit", "build_tree"])
+def test_engine_and_closure_together_raise(data, route):
     _, _, ds = data
-    rf = RandomForest(tree_lib.TreeParams(max_depth=2), num_trees=1,
-                      device="cpu")
+    p = tree_lib.TreeParams(max_depth=2)
+    both = dict(engine=ExactNumeric(), supersplit_fn=port_sorted_fn)
     with pytest.raises(ValueError, match="not both"):
-        rf.fit(ds, engine=ExactNumeric(), supersplit_fn=port_sorted_fn)
+        if route == "fit":
+            RandomForest(p, num_trees=1, device="cpu").fit(ds, **both)
+        else:
+            tree_lib.build_tree(tree_idx=0, params=p, **both)
 
 
 def test_engine_as_supersplit_fn_keeps_tree_batching(data, recwarn):

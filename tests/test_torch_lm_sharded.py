@@ -46,6 +46,8 @@ OPT = adamw.AdamWConfig()        # b1, b2, eps: the schedule is not read
 @pytest.fixture(scope="module")
 def runs(tmp_path_factory):
     tmp = tmp_path_factory.mktemp("lm_dist")
+    # one intra-op thread a rank: the four ranks and the reference share
+    # the test's cores, whether or not pytest runs in workers
     env = dict(os.environ, PYTHONPATH=str(SRC), OMP_NUM_THREADS="1")
     ref_env = dict(env, JAX_PLATFORMS="cpu",
                    XLA_FLAGS="--xla_force_host_platform_device_count=4")

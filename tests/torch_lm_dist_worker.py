@@ -89,7 +89,7 @@ def port(rank, world, store, out):
     from repro_torch.train import sharding as shd
     from repro_torch.train import step as train_step
 
-    torch.set_num_threads(1)
+    torch.set_num_threads(1)        # one thread a rank: four share the cores
     dist.init_process_group("gloo", store=dist.FileStore(store, world),
                             rank=rank, world_size=world)
     out = Path(out)
