@@ -476,46 +476,58 @@ def library_index_add(x, leaf, w, y, L1, V, S, task):
     return call
 
 
-def check_cat_hist(args, dev, g, n, T, m, L1, V, task, timed, inputs=None):
+def check_cat_hist(args, dev, g, n, T, m, L1, V, task, timed, inputs=None,
+                   slot=None, m_prime=None):
     """cat_hist against its plain version, bit for bit (regression: both
     sum in the same 64-bit fixed point), and a regression table again
-    (repeatable run to run)."""
+    (repeatable run to run).  With `slot` (a candidate mask's slot map):
+    the compact tables, held at the candidates' slots against the plain
+    version's; the bound counts the rows gathered for them."""
     import torch
     from repro_torch.kernels import cat_hist as ch
     S = 2 if task == "classification" else 3
     x, leaf, w, y = inputs or cat_inputs(g, n, T, m, L1, V, task, dev)
     kw = dict(L1=L1, V=V, num_stats=S, task=task)
-    tk = ch.cat_hist(x, leaf, w, y, **kw)
-    tp = ch.cat_hist_plain(x, leaf, w, y, **kw)
+    plain_kw = dict(kw)
+    if slot is None:
+        slot = ch.full_slots(T, m, L1, x.device)
+    else:
+        kw.update(slot=slot, m_prime=m_prime)
+    n_tab = int((slot >= 0).sum().item())
+    tk = ch.cat_hist(x, leaf, w, y, **kw).reshape(-1, V, S)[:n_tab]
+    tp = ch.compact_tables(ch.cat_hist_plain(x, leaf, w, y, **plain_kw),
+                           slot, n_tab)
     torch.cuda.synchronize()
     err = (tk - tp).abs().max().item()
     if not torch.equal(tk, tp):
         fail(f"cat_hist {task} V={V} L1={L1}: not bit-equal (max err {err})")
     if task == "regression" and not torch.equal(
-            tk, ch.cat_hist(x, leaf, w, y, **kw)):
+            tk, ch.cat_hist(x, leaf, w, y, **kw).reshape(-1, V, S)[:n_tab]):
         fail(f"cat_hist regression V={V} L1={L1}: not deterministic")
-    row = dict(n=n, T=T, m=m, L1=L1, V=V, task=task, max_abs_err=err,
-               bit_equal=True)
+    row = dict(n=n, T=T, m=m, L1=L1, V=V, task=task, tables=n_tab,
+               max_abs_err=err, bit_equal=True)
     del tk, tp
     if timed:
         row["ms"] = cuda_ms(lambda: ch.cat_hist(x, leaf, w, y, **kw))
-        row["plain_ms"] = cuda_ms(lambda: ch.cat_hist_plain(x, leaf, w, y,
-                                                            **kw), runs=1)
+        row["plain_ms"] = cuda_ms(lambda: ch.cat_hist_plain(
+            x, leaf, w, y, **plain_kw), runs=1)
         row["library_ms"] = cuda_ms(
             library_index_add(x, leaf, w, y, L1, V, S, task), runs=3)
         row["host_ms"] = host_ms(lambda: ch.cat_hist(x, leaf, w, y, **kw))
         row["kernels"] = kernel_split(lambda: ch.cat_hist(x, leaf, w, y,
                                                           **kw))
-        adds = ((leaf > 0) & (w > 0)).sum().item() * m
+        gathered = ch.gathered_rows(leaf, w, slot, L1)
+        row["gathered_rows"] = gathered
         row["bound_ms"], row["bound_by"] = bound_ms(
-            ch.bound_bytes(T, m, n, L1, V, S), adds)
+            ch.bound_bytes(T, m, n, L1, V, S, tables=n_tab,
+                           gathered=gathered), gathered)
     torch.cuda.empty_cache()
     log(f"  cat_hist {json.dumps(row)}")
     return row
 
 
 def check_breiman(args, dev, tables, cand, label, timed, impurity="gini",
-                  min_records=1.0, plain_runs=1):
+                  min_records=1.0, plain_runs=1, slot=None):
     """breiman against its plain version on the card: gains bit for bit,
     masks equal wherever the gain is finite and all-False elsewhere, and
     the device counter up by the candidate segments.  Timed: the kernel,
@@ -524,8 +536,8 @@ def check_breiman(args, dev, tables, cand, label, timed, impurity="gini",
     from repro_torch.kernels import breiman
     kw = dict(impurity=impurity, min_records=min_records)
     scored0 = int(breiman.scored_counter(dev).item())
-    gk, mk = breiman.breiman(tables, cand, **kw)
-    gp, mp = breiman.breiman_plain(tables, cand, **kw)
+    gk, mk = breiman.breiman(tables, cand, slot, **kw)
+    gp, mp = breiman.breiman_plain(tables, cand, slot, **kw)
     torch.cuda.synchronize()
     scored = int(breiman.scored_counter(dev).item()) - scored0
     n_cand = int(cand.sum().item())
@@ -541,18 +553,20 @@ def check_breiman(args, dev, tables, cand, label, timed, impurity="gini",
     if scored != n_cand:
         fail(f"breiman {label}: {scored} segments scored, {n_cand} "
              f"candidates")
-    T, m, L1, V, S = tables.shape
+    T, m, L1 = cand.shape
+    V, S = tables.shape[-2:]
     row = dict(T=T, m=m, L1=L1, V=V, S=S, impurity=impurity,
                min_records=min_records, candidates=n_cand,
                finite=int(fin.sum().item()), bit_equal=True)
     del gk, mk, gp, mp
     if timed:
-        row["ms"] = cuda_ms(lambda: breiman.breiman(tables, cand, **kw))
+        row["ms"] = cuda_ms(lambda: breiman.breiman(tables, cand, slot,
+                                                    **kw))
         row["plain_ms"] = cuda_ms(
-            lambda: breiman.breiman_plain(tables, cand, **kw),
+            lambda: breiman.breiman_plain(tables, cand, slot, **kw),
             runs=plain_runs)
         row["kernels"] = kernel_split(
-            lambda: breiman.breiman(tables, cand, **kw))
+            lambda: breiman.breiman(tables, cand, slot, **kw))
         row["bound_ms"], row["bound_by"] = bound_ms(
             breiman.bound_bytes(n_cand, T, m, L1, V, S), 0)
     torch.cuda.empty_cache()
@@ -895,23 +909,26 @@ def capture_exact_levels(args, ds):
                           totals, impurity, task, min_records)
 
     def record_cat(cat_cols, leaf_of, w, labels, *, V, Lp, task,
-                   num_classes):
+                   num_classes, slot=None, m_prime=None):
         ss = levels[-1]["ss"]["ins"]
         levels[-1]["cat"] = dict(
             ins=(cat_cols.contiguous(), ss[2], ss[3], ss[4]),
-            kw=dict(L1=Lp + 1, V=V, num_stats=kops.stat_dim(num_classes,
-                                                            task),
-                    task=task))
+            kw=dict(L1=Lp + 1, V=V,
+                    num_stats=kops.stat_dim(num_classes, task), task=task,
+                    slot=None if slot is None else own(slot),
+                    m_prime=m_prime))
         if not torch.equal(leaf_of, ss[2]):
             fail("capture: the categorical engine saw other leaf ids than "
                  "the numeric engine of the same level")
         return cat_adapter(cat_cols, leaf_of, w, labels, V=V, Lp=Lp,
-                           task=task, num_classes=num_classes)
+                           task=task, num_classes=num_classes, slot=slot,
+                           m_prime=m_prime)
 
-    def record_brm(tables, cand, impurity="gini", min_records=1.0):
+    def record_brm(tables, cand, impurity="gini", min_records=1.0,
+                   slot=None):
         levels[-1]["brm"] = dict(cand=own(cand), kw=dict(
             impurity=impurity, min_records=min_records))
-        return brm_adapter(tables, cand, impurity, min_records)
+        return brm_adapter(tables, cand, impurity, min_records, slot=slot)
 
     kops.split_scan_supersplit = record_ss
     kops.categorical_tables = record_cat
@@ -938,7 +955,7 @@ def breiman_levels(args, dev, levels):
         tables = ch.cat_hist(*lv["cat"]["ins"], **lv["cat"]["kw"])
         r = check_breiman(args, dev, tables, lv["brm"]["cand"],
                           f"exact fit level {depth}", True,
-                          **lv["brm"]["kw"])
+                          slot=lv["cat"]["kw"]["slot"], **lv["brm"]["kw"])
         del tables
         torch.cuda.empty_cache()
         rows.append(dict(depth=depth, **{k: r[k] for k in (
@@ -978,10 +995,11 @@ def exact_main_levels(args, dev, ds):
     """split_scan and cat_hist on the inputs that every level of one tree
     batch of the exact Leo fit gives them (`capture_exact_levels`): at each
     level both are held against their plain versions (bit-equal: binary
-    gini, classification counts) and timed, cat_hist also on the columns
-    of arity <= 64 and > 64 alone, and the device time of each kernel the
-    two launch is split by name (`kernel_split`).  Returns the per-level
-    and summed times."""
+    gini, classification counts; cat_hist's tables at the slots of the
+    level's candidates) and timed, cat_hist also on the columns of arity
+    <= 64 and > 64 alone and with no candidate (every block returns), and
+    the device time of each kernel the two launch is split by name
+    (`kernel_split`).  Returns the per-level and summed times."""
     import torch
     from repro_torch.kernels import cat_hist as ch
     from repro_torch.kernels import split_scan as ss
@@ -994,34 +1012,46 @@ def exact_main_levels(args, dev, ds):
     for depth, lv in enumerate(levels):
         s_ins, s_kw = lv["ss"]["ins"], lv["ss"]["kw"]
         c_ins, c_kw = lv["cat"]["ins"], lv["cat"]["kw"]
+        slot = c_kw["slot"]
+        plain_kw = {k: v for k, v in c_kw.items()
+                    if k not in ("slot", "m_prime")}
+
+        def part(cols):         # c_kw over the columns `cols` only
+            return dict(c_kw, slot=ch.candidate_slots(slot[:, cols] >= 0))
         gk, tk = ss.split_scan(*s_ins, **s_kw)
         gp, tp = ss.split_scan_plain(*s_ins, **s_kw)
         if not (torch.equal(gk, gp) and torch.equal(tk, tp)):
             fail(f"split_scan on level {depth} of the exact fit: not "
                  f"bit-equal")
         del gk, tk, gp, tp
-        ck = ch.cat_hist(*c_ins, **c_kw)
-        cp = ch.cat_hist_plain(*c_ins, **c_kw)
+        n_tab = int((slot >= 0).sum().item())
+        ck = ch.cat_hist(*c_ins, **c_kw)[:n_tab]
+        cp = ch.compact_tables(ch.cat_hist_plain(*c_ins, **plain_kw), slot,
+                               n_tab)
         if not torch.equal(ck, cp):
             fail(f"cat_hist on level {depth} of the exact fit: not "
                  f"bit-equal")
         del ck, cp
         torch.cuda.empty_cache()
         leaf, w = s_ins[2], s_ins[3]
-        r = dict(depth=depth, L1=c_kw["L1"],
+        r = dict(depth=depth, L1=c_kw["L1"], tables=n_tab,
                  open_leaves=sum(int(torch.unique(lt[(lt > 0) & (wt > 0)])
                                      .numel()) for lt, wt in zip(leaf, w)),
                  split_scan_ms=cuda_ms(lambda: ss.split_scan(*s_ins,
                                                              **s_kw)),
                  cat_hist_ms=cuda_ms(lambda: ch.cat_hist(*c_ins, **c_kw)),
                  cat_hist_arity_le_64_ms=cuda_ms(
-                     lambda: ch.cat_hist(x_low, *c_ins[1:], **c_kw)),
+                     lambda: ch.cat_hist(x_low, *c_ins[1:], **part(low))),
                  cat_hist_arity_gt_64_ms=cuda_ms(
-                     lambda: ch.cat_hist(x_high, *c_ins[1:], **c_kw)),
+                     lambda: ch.cat_hist(x_high, *c_ins[1:], **part(high))),
                  split_scan_kernels=kernel_split(
                      lambda: ss.split_scan(*s_ins, **s_kw)),
                  cat_hist_kernels=kernel_split(
-                     lambda: ch.cat_hist(*c_ins, **c_kw)))
+                     lambda: ch.cat_hist(*c_ins, **c_kw)),
+                 # every block returns at once: their cost
+                 cat_hist_no_cand_kernels=kernel_split(
+                     lambda: ch.cat_hist(*c_ins, **dict(
+                         c_kw, slot=torch.full_like(slot, -1)))))
         torch.cuda.empty_cache()
         log(f"  exact fit level {json.dumps(r)}")
         rows.append(r)
@@ -1206,9 +1236,12 @@ def bag_main_shapes(args, dev) -> dict:
 
 def phase2_main_shapes(args, dev, ds):
     """Both kernels at the shapes the deepest level of the main path gives
-    them: the training columns, L1 = 513 leaves, V = 10,000."""
+    them: the training columns, L1 = 513 leaves, V = 10,000 (cat_hist's
+    tables for the candidates of the level plan's draw)."""
     import torch
     from repro_torch.core import bagging, presort
+    from repro_torch.core import tree as tree_lib
+    from repro_torch.kernels import cat_hist as ch
     g = torch.Generator(device=dev)
     g.manual_seed(args.seed + 1)
     T, L1 = TREE_BATCH, 2 ** (args.depth - 1) + 1
@@ -1250,12 +1283,23 @@ def phase2_main_shapes(args, dev, ds):
     del gk, tk, gp, tp, ins, svals, sidx, num
     cat_cols = torch.as_tensor(ds.cat, device=dev).t().contiguous()
     V = max(ds.arities)
+    # the level plan's draw: m' of the m_num + m_cat columns a leaf, the
+    # categorical ones kept (leaf 0 is closed)
+    m_prime = tree_lib._num_candidates(tree_lib.TreeParams(),
+                                       ds.m_num + ds.m_cat)
+    keys = torch.rand((T, L1, ds.m_num + ds.m_cat), generator=g, device=dev)
+    drawn = torch.zeros_like(keys, dtype=torch.bool).scatter_(
+        2, keys.topk(m_prime, 2).indices, True)
+    drawn[:, 0] = False
+    cand = drawn[..., ds.m_num:].transpose(1, 2).contiguous()
     r = check_cat_hist(args, dev, g, n, T, ds.m_cat, L1, V,
                        "classification", True,
-                       inputs=(cat_cols, leaf, w, y))
+                       inputs=(cat_cols, leaf, w, y),
+                       slot=ch.candidate_slots(cand), m_prime=m_prime)
     rows["cat_hist"] = dict(shape=dict(n=n, T=T, m=ds.m_cat, L1=L1, V=V,
                                        S=2),
-                            **{k: r[k] for k in ("max_abs_err", "ms",
+                            **{k: r[k] for k in ("max_abs_err", "tables",
+                                                 "gathered_rows", "ms",
                                                  "plain_ms", "bound_ms",
                                                  "bound_by", "library_ms")})
     del cat_cols, leaf, w, y
@@ -1863,13 +1907,14 @@ def gbt_recorders(captured):
                        totals, impurity, task, min_records)
 
     def record_cat(cat_cols, leaf_of, w, labels, *, V, Lp, task,
-                   num_classes):
+                   num_classes, slot=None, m_prime=None):
         captured["cat_hist"] = dict(
             ins=(cat_cols.contiguous(), own(leaf_of), w.contiguous(),
                  labels.to(torch.float32).contiguous()),
-            L1=Lp + 1, V=V, task=task)
+            L1=Lp + 1, V=V, task=task,
+            slot=None if slot is None else own(slot), m_prime=m_prime)
         return orig[1](cat_cols, leaf_of, w, labels, V=V, Lp=Lp, task=task,
-                       num_classes=num_classes)
+                       num_classes=num_classes, slot=slot, m_prime=m_prime)
 
     def record_feat(bin_of, slots, w, labels, *, B, W, task, num_classes):
         captured["feat_hist"] = dict(
@@ -1985,7 +2030,8 @@ def check_gbt_kernels(args, captured, kernels, label):
             x, leaf, w, y = cap["ins"]
             r = check_cat_hist(args, None, None, x.shape[1], leaf.shape[0],
                                x.shape[0], cap["L1"], cap["V"], cap["task"],
-                               True, inputs=cap["ins"])
+                               True, inputs=cap["ins"], slot=cap["slot"],
+                               m_prime=cap["m_prime"])
         else:
             x, slot, w, y = cap["ins"]
             r = check_feat_hist(args, None, None, x.shape[1], slot.shape[0],
@@ -2415,15 +2461,21 @@ def check_shard_call(kind: str, held: list) -> dict:
             c["cols"].contiguous(), rows, c["w"].contiguous(), y, W=kw["W"],
             B=kw["B"], num_stats=S, **extra)
     else:
+        slot = kw.get("slot")
         got = kops.categorical_tables(c["cols"], rows, c["w"], y,
                                       V=kw["V"], Lp=kw["Lp"],
                                       task=kw["task"],
                                       num_classes=kw["num_classes"],
                                       scales=extra["scales"],
-                                      fixed=extra["fixed"])
+                                      fixed=extra["fixed"], slot=slot,
+                                      m_prime=kw.get("m_prime"))
         want = cat_hist.cat_hist_plain(
             c["cols"].contiguous(), rows, c["w"].contiguous(), y,
             L1=kw["Lp"] + 1, V=kw["V"], num_stats=S, **extra)
+        if slot is not None:    # the candidates' tables, at their slots
+            n_tab = int((slot >= 0).sum().item())
+            got = got[:n_tab]
+            want = cat_hist.compact_tables(want, slot, n_tab)
     torch.cuda.synchronize()
     out = dict(equal=bool(got.dtype == want.dtype and torch.equal(got, want)),
                max_abs_err=float((got.double() - want.double()).abs().max()),

@@ -27,7 +27,7 @@ import torch
 from torch.profiler import record_function
 
 from repro_torch.core import splits
-from repro_torch.kernels import breiman
+from repro_torch.kernels import breiman, cat_hist
 from repro_torch.kernels import ops as kops
 from repro_torch.kernels import split_scan
 
@@ -82,6 +82,8 @@ class LevelStatics(NamedTuple):
     `subtract` is the per-level setting the plan fills in: the inputs
     carry a valid previous level (prev_tables + maps), so only build-slot
     leaves are scattered and their siblings derive as parent − sibling.
+    `m_prime` bounds a leaf's candidate columns, which sizes the
+    categorical engine's compact tables.
     """
     m_num: int
     m_cat: int
@@ -92,6 +94,7 @@ class LevelStatics(NamedTuple):
     min_records: float
     num_bins: int = 255
     subtract: bool = False
+    m_prime: int = 0            # candidate columns a leaf draws (0: all)
 
 
 class SplitEngine:
@@ -358,14 +361,17 @@ class HistNumeric(SplitEngine):
         return (*self.score_tables(tables, cand, st), tables)
 
 
-def _score_tables(tables, cand, st):
-    """Breiman scoring of (T, m, L+1, V, S) tables: classification through
-    the `breiman` kernel wrapper (its plain version on CPU tensors);
-    regression's float64 prefix sums keep their sequential order in the
-    plain version on every device."""
+def _score_tables(tables, cand, st, slot=None):
+    """Breiman scoring of the (K, V, S) tables `kops.categorical_tables`
+    built at `slot` (`cat_hist.candidate_slots(cand)`; None: one table per
+    (tree, column, leaf), in order): classification
+    through the `breiman` kernel wrapper (its plain version on CPU
+    tensors); regression's float64 prefix sums keep their sequential order
+    in the plain version on every device."""
     if st.task == "classification":
-        return kops.breiman_splits(tables, cand, st.impurity, st.min_records)
-    return breiman.breiman_plain(tables, cand, impurity=st.impurity,
+        return kops.breiman_splits(tables, cand, st.impurity, st.min_records,
+                                   slot=slot)
+    return breiman.breiman_plain(tables, cand, slot, impurity=st.impurity,
                                  task=st.task, min_records=st.min_records)
 
 
@@ -377,7 +383,15 @@ class CategoricalTable(SplitEngine):
     versions, `splits.categorical_count_tables` and
     `splits.best_categorical_split_from_table`, on CPU tensors); `backend`
     is the reference's label and picks no path here.  Classification
-    tables are int32 class counts, exact to 2^31."""
+    tables are int32 class counts, exact to 2^31.
+
+    Only the candidate (tree, column, leaf)s get a table: the slot map of
+    `cand` (`cat_hist.candidate_slots`, made once a level) goes to
+    cat_hist, which builds the compact (K, V, S) tables, K = T·(L+1)·
+    min(m′, m_cat), and to the scorer, which reads each candidate's there.
+    Where m′ >= m_cat, K is the full count; the trees are those of a table
+    for every (tree, column, leaf) either way (the same counts in the
+    tables that are read)."""
     backend: str = "kernel"
 
     kind = "categorical"
@@ -385,12 +399,14 @@ class CategoricalTable(SplitEngine):
 
     def supersplits(self, inp, st, Lp, cand):
         with record_function("level.cat_tables"):
+            slot = cat_hist.candidate_slots(cand)
             tables = kops.categorical_tables(
                 inp.cat_cols, inp.leaf_of, inp.w, inp.labels,
                 V=st.max_arity, Lp=Lp, task=st.task,
-                num_classes=st.num_classes)
+                num_classes=st.num_classes, slot=slot,
+                m_prime=st.m_prime or None)
         with record_function("level.cat_breiman"):
-            return _score_tables(tables, cand, st)
+            return _score_tables(tables, cand, st, slot)
 
 
 @dataclasses.dataclass(frozen=True, eq=False)   # identity hash, as the

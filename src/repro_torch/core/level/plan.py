@@ -132,7 +132,7 @@ class LevelPlan:
             m_num=self.m_num, m_cat=self.m_cat, max_arity=self.max_arity,
             num_classes=self.num_classes, impurity=self.impurity,
             task=self.task, min_records=self.min_records,
-            num_bins=self.num_bins)
+            num_bins=self.num_bins, m_prime=self.m_prime)
 
     @property
     def use_ord(self) -> bool:

@@ -379,7 +379,9 @@ class ShardedCategorical(_MeshEngine):
     merge is exact); the Breiman-ordered prefix cuts are then scored for
     the rank's columns, and an all_gather over `feature_axis` assembles
     the gains and left-masks (T·m_cat·(L+1)·V bools).  m_cat must be
-    divisible by the feature-axis size."""
+    divisible by the feature-axis size.  As on one device, only the
+    candidate (tree, column, leaf)s have a table: every row shard draws
+    the same candidates, so their compact tables add slot for slot."""
 
     kind = "categorical"
 
@@ -390,12 +392,15 @@ class ShardedCategorical(_MeshEngine):
         rs = self._rows(n)
         leaf, ww, y = inp.leaf_of[:, rs], inp.w[:, rs], inp.labels[rs]
         x = inp.cat_cols[cs, rs]
+        cand = cand[:, cs].contiguous()
         with record_function("level.cat_tables"):
+            slot = cat_hist.candidate_slots(cand)
             tables = self._merged_tables(
                 lambda **kw: kops.categorical_tables(
                     x, leaf, ww, y, V=st.max_arity, Lp=Lp, task=st.task,
-                    num_classes=st.num_classes, **kw),
+                    num_classes=st.num_classes, slot=slot,
+                    m_prime=st.m_prime or None, **kw),
                 leaf, ww, y, Lp + 1, st.task, n)
         with record_function("level.cat_breiman"):
-            g, masks = _score_tables(tables, cand[:, cs], st)
+            g, masks = _score_tables(tables, cand, st, slot)
         return self._gather_cols(g), self._gather_cols(masks)

@@ -11,6 +11,12 @@
 // ordered prefix cuts (both sides >= min_records) and keeps the first best
 // cut: the gain, and the row of V flags of the categories left of it.
 //
+// The tables are cat_hist's: segment seg's at slot[seg] of the slot map
+// the caller built them with (compact: only the candidates have a table,
+// an exclusive prefix over the candidate mask, kernels/cat_hist.py
+// `candidate_slots`; the map of an all-true mask is seg itself).  The gains
+// (T, m, L1) and masks (T, m, L1, V) are every segment's.
+//
 // Bound on an H100 SXM (3.35 TB/s): bytes.  A candidate segment's V·S
 // counts are read once, every segment's mask row (V bytes) and gain are
 // written once; the sort and the scan are a few dozen operations per
@@ -342,7 +348,8 @@ __device__ __forceinline__ void block_scan(const int* run, int* left,
 }
 
 // Blocks walk groups of SEGS consecutive segments (seg = (t * m + j) * L1
-// + h), gridDim.x groups apart.  GK = false: dynamic shared memory holds V
+// + h), gridDim.x groups apart; a candidate segment's table is at
+// slot[seg].  GK = false: dynamic shared memory holds V
 // keys, then V flags (rounded to 16).  GK = true: each block's keys take V
 // slots of its workspace slice and the flags are set in the output row.
 // C == 0: the slice (after any keys) holds S totals, then S x THREADS
@@ -350,8 +357,9 @@ __device__ __forceinline__ void block_scan(const int* run, int* left,
 template <int C, bool GK>
 __global__ void __launch_bounds__(THREADS)
 brm_score(const int* __restrict__ tables,
-          const unsigned char* __restrict__ cand, long long nseg, int V,
-          int S_arg, int kind, float min_records,
+          const unsigned char* __restrict__ cand,
+          const int* __restrict__ slot, long long nslot, long long nseg,
+          int V, int S_arg, int kind, float min_records,
           unsigned long long* __restrict__ scored,
           float* __restrict__ gains, unsigned char* __restrict__ masks,
           unsigned char* ws, long long ws_stride) {
@@ -369,12 +377,16 @@ brm_score(const int* __restrict__ tables,
     const long long seg1 = min(nseg, (grp + 1) * SEGS);
     for (long long seg = grp * SEGS; seg < seg1; ++seg) {
       unsigned char* row = masks + seg * (long long)V;
-      if (!cand[seg]) {
+      // the segment's table: its slot (-1 off the candidates; past nslot,
+      // which the wrapper asserts never comes, is taken as none)
+      const bool is_cand = cand[seg];
+      const long long ts = slot[seg];
+      if (!is_cand || ts < 0 || ts >= nslot) {
         if (tid == 0) gains[seg] = -CUDART_INF_F;
         store_row(row, nullptr, V);
         continue;
       }
-      const int* tab = tables + seg * (long long)V * S;
+      const int* tab = tables + ts * (long long)V * S;
       unsigned char* flags = GK ? row : sflags;
       if (tid == 0) {
         sh.k = 0;
@@ -598,12 +610,13 @@ cudaError_t make_plan(Plan& p, long long nseg, int V, int S) {
 
 template <int C, bool GK>
 void launch(const Plan& p, const int* tables, const unsigned char* cand,
-            long long nseg, int V, int S, int kind, float min_records,
-            unsigned long long* scored, float* gains, unsigned char* masks,
-            unsigned char* ws, cudaStream_t stream) {
+            const int* slot, long long nslot, long long nseg, int V, int S,
+            int kind, float min_records, unsigned long long* scored,
+            float* gains, unsigned char* masks, unsigned char* ws,
+            cudaStream_t stream) {
   brm_score<C, GK><<<(unsigned)p.grid, THREADS, p.smem, stream>>>(
-      tables, cand, nseg, V, S, kind, min_records, scored, gains, masks, ws,
-      p.stride);
+      tables, cand, slot, nslot, nseg, V, S, kind, min_records, scored,
+      gains, masks, ws, p.stride);
 }
 
 }  // namespace
@@ -617,12 +630,15 @@ extern "C" long long brm_workspace_bytes(long long nseg, int V, int S) {
   return p.stride * p.grid;
 }
 
-// tables (nseg, V, S) int32 (nseg = T * m * L1), cand (nseg) bytes;
+// cand (nseg) bytes (nseg = T * m * L1 segments); tables: nslot tables of
+// V x S int32, segment seg's at slot[seg] (slot (nseg) int32, -1 off the
+// candidates);
 // out: gains (nseg) float32, masks (nseg, V) bytes; scored (1) uint64 is
 // added to; ws: brm_workspace_bytes(nseg, V, S) bytes of device memory
 // (null when that is 0).  Returns the first CUDA error.
 extern "C" int brm_launch(const int* tables, const unsigned char* cand,
-                          long long nseg, int V, int S, int kind,
+                          const int* slot, long long nslot, long long nseg,
+                          int V, int S, int kind,
                           float min_records, unsigned long long* scored,
                           float* gains, unsigned char* masks, void* ws,
                           long long ws_bytes, void* stream_ptr) {
@@ -635,20 +651,17 @@ extern "C" int brm_launch(const int* tables, const unsigned char* cand,
     return (int)cudaErrorInvalidValue;
   cudaStream_t stream = (cudaStream_t)stream_ptr;
   unsigned char* w = (unsigned char*)ws;
+#define BRM_LAUNCH(C, GK)                                                  \
+  launch<C, GK>(p, tables, cand, slot, nslot, nseg, V, S, kind, min_records, \
+                scored, gains, masks, w, stream)
   switch (p.C * 2 + p.gk) {
-    case 4: launch<2, false>(p, tables, cand, nseg, V, S, kind, min_records,
-                             scored, gains, masks, w, stream); break;
-    case 5: launch<2, true>(p, tables, cand, nseg, V, S, kind, min_records,
-                            scored, gains, masks, w, stream); break;
-    case 32: launch<16, false>(p, tables, cand, nseg, V, S, kind,
-                               min_records, scored, gains, masks, w, stream);
-      break;
-    case 33: launch<16, true>(p, tables, cand, nseg, V, S, kind, min_records,
-                              scored, gains, masks, w, stream); break;
-    case 0: launch<0, false>(p, tables, cand, nseg, V, S, kind, min_records,
-                             scored, gains, masks, w, stream); break;
-    default: launch<0, true>(p, tables, cand, nseg, V, S, kind, min_records,
-                             scored, gains, masks, w, stream); break;
+    case 4: BRM_LAUNCH(2, false); break;
+    case 5: BRM_LAUNCH(2, true); break;
+    case 32: BRM_LAUNCH(16, false); break;
+    case 33: BRM_LAUNCH(16, true); break;
+    case 0: BRM_LAUNCH(0, false); break;
+    default: BRM_LAUNCH(0, true); break;
   }
+#undef BRM_LAUNCH
   return (int)cudaGetLastError();
 }

@@ -6,13 +6,22 @@
 // value in column j is v — w * one_hot(y) for classification, [w, w*y,
 // w*y*y] for regression.  Row order does not matter.
 //
+// Only the tables that will be read are built.  A leaf draws m' candidate
+// columns (at the paper's Leo shape 10 of 82, about 9.6 of the 79
+// categorical ones) and the Breiman scorer reads only their tables, so the
+// caller passes a slot map (T, m, L1) int32: each candidate (tree, column,
+// leaf)'s table in a compact (nslot, V, S) output, -1 for none (the map is
+// an exclusive prefix over the candidate mask, made on the card;
+// kernels/cat_hist.py `candidate_slots`).  The map of a mask that is all
+// true, slot (t * m + j) * L1 + h, gives the full (T, m, L1, V, S) layout.
+//
 // Bound on an H100 SXM (3.35 TB/s): bytes.  The rows are read once — each
 // column's int32 values and, once per row for all columns, the per-tree
-// leaf id and bag weight and the label — and the (T, m, L1, V, S) table is
-// written once.  At a deep level that table is gigabytes (V = 10,000 per
-// column), far past the 50 MB L2, so a scatter with one device-memory
-// atomic per (row, column, tree) pays a DRAM read-modify-write for nearly
-// every add; and a table zeroed first is written twice.
+// leaf id and bag weight and the label — and each table is written once.
+// At a deep level the tables are gigabytes (V = 10,000 per column), far
+// past the 50 MB L2, so a scatter with one device-memory atomic per (row,
+// column, tree) pays a DRAM read-modify-write for nearly every add; and a
+// table zeroed first is written twice.
 //
 // The design builds each table tile in shared memory and writes it once:
 //   1. bucketing (cat_bucket_count, then cat_bucket_scatter): a stable
@@ -24,31 +33,38 @@
 //      the order within a leaf is the row order and the lists are the same
 //      on every run.
 //   2. tiles (cat_tile): a block owns one work item (tree, leaf tile, row
-//      range of the tile's rows) and one category tile, for one column.  Its
-//      table — the leaf tile's leaves x the category tile x S — lives in
-//      shared memory; the block streams its rows from the lists (coalesced)
-//      and gathers each row's category from the column, adding with
-//      shared-memory atomics.  A tile whose rows one block takes whole is
-//      then stored once, padding zeros included, with coalesced stores; a
-//      tile whose rows are split over several blocks (a leaf holding many
-//      rows, at the shallow levels) has its region zeroed first and each
-//      block adds its nonzero cells with one device atomic each.  Blocks of
-//      one column run together (the column is the grid's slowest axis), so
-//      the gathered column stays in L2.
+//      range of the tile's rows), one category tile and one column.  It
+//      reads its leaves' table slots into shared memory and returns at
+//      once if none has a table (at Leo's shape a tile is one leaf, so
+//      some 88% of the blocks return there); the rows of a leaf without
+//      one are not gathered.  Its table — the leaf tile's leaves x the
+//      category tile x S — lives in shared memory; the block streams its
+//      rows from the lists (coalesced) and gathers each row's category
+//      from the column, adding with shared-memory atomics.  A tile whose
+//      rows one block takes whole is then stored once, each leaf's cells
+//      at its slot, padding zeros included, with coalesced stores; a tile
+//      whose rows are split over several blocks (a leaf holding many rows,
+//      at the shallow levels) has its leaves' tables zeroed first
+//      (cat_zero_split) and each block adds its nonzero cells with one
+//      device atomic each.  Blocks of one column run together (the column
+//      is the grid's slowest axis), so the gathered column stays in L2.
+//      (A grid of only each item's candidate columns launches no block
+//      that returns, but its rows of blocks mix columns: at Leo's shape it
+//      lost more to the L2 than the returning blocks cost.)
 //   When the whole table of a (tree, column) fits in one block (a small
 //   frontier times a small arity), no bucketing is needed: the work items
 //   are row ranges of the natural order, each block privatises the whole
 //   table and flushes it with device atomics.
-// The host (kernels/cat_hist.py) sizes the tiles from (L1, V, S); the work
-// items are planned on the device from the per-leaf row counts (cat_plan),
-// so the host never waits for the card.  Classification adds only the one
-// nonzero entry w, a bag count (an integer: a fraction is dropped), with
-// integer atomics: the table is int32 class counts, exact to 2^31 in any
-// order.
+// The host (kernels/cat_hist.py) sizes the tiles from (L1, V, S) and the
+// compact output from m'; the work items are planned on the device from
+// the per-leaf row counts (cat_plan), so the host never waits for the
+// card.  Classification adds only the one nonzero entry w, a bag count (an
+// integer: a fraction is dropped), with integer atomics: the table is int32
+// class counts, exact to 2^31 in any order.
 // Regression adds 64-bit fixed-point integers (one power-of-two scale per
 // stat channel, picked by the caller from the data's magnitude), which is
 // associative, so repeated runs give the same bits; a last pass converts
-// the integers to float32.
+// the integers to float32 (cat_fixed_launch).
 #include <cuda_runtime.h>
 
 namespace {
@@ -303,17 +319,34 @@ cat_plan(const int* __restrict__ lstart, int natural, int T, int n, int L1,
   }
 }
 
-// Zero the region out[t, j, h0:h0+LT] of each split tile (flag 1), before
-// the tile blocks add into it.  Grid (Wmax, m).
-__global__ void cat_zero_split(const int* __restrict__ work, int m, int L1,
-                               int V, int SW, int LT,
+// Slot of the table of (tree t, column j, leaf h) in the output, from the
+// caller's slot map: -1 for none.  A slot past nslot, which the wrapper
+// asserts never comes, is taken as -1 too, so no store lands outside.
+__device__ __forceinline__ long long table_slot(const int* __restrict__ slot,
+                                                long long nslot, int t, int m,
+                                                int j, int L1, int h) {
+  const int s = slot[((long long)t * m + j) * L1 + h];
+  return s >= 0 && s < nslot ? s : -1;
+}
+
+// Zero the tables of the leaves h0..h0+LT-1 of column blockIdx.y of each
+// split tile (flag 1), before the tile blocks add into them; a leaf with no
+// table is skipped.  Grid (Wmax, m).
+__global__ void cat_zero_split(const int* __restrict__ work,
+                               const int* __restrict__ slot, long long nslot,
+                               int m, int L1, int V, int SW, int LT,
                                unsigned* __restrict__ out) {
   const int* wk = work + (size_t)blockIdx.x * WORK;
   if (wk[0] < 0 || wk[4] != 1) return;
+  const int j = blockIdx.y;
   const int h0 = wk[1] * LT, nh = min(L1, h0 + LT) - h0;
-  unsigned* dst = out + (((size_t)wk[0] * m + blockIdx.y) * L1 + h0) * V * SW;
-  const size_t len = (size_t)nh * V * SW;
-  for (size_t i = threadIdx.x; i < len; i += blockDim.x) dst[i] = 0u;
+  const size_t len = (size_t)V * SW;
+  for (int hh = 0; hh < nh; ++hh) {
+    const long long s = table_slot(slot, nslot, wk[0], m, j, L1, h0 + hh);
+    if (s < 0) continue;
+    unsigned* dst = out + (size_t)s * len;
+    for (size_t i = threadIdx.x; i < len; i += blockDim.x) dst[i] = 0u;
+  }
 }
 
 __host__ __device__ __forceinline__ size_t pad16(size_t bytes) {
@@ -324,10 +357,10 @@ __device__ __forceinline__ bool aligned16(const void* p) {
   return ((size_t)p & 15) == 0;
 }
 
-// Shared memory of a tile block: list bounds, then the table (16-byte
-// padded each).
+// Shared memory of a tile block: the leaves' table slots, the list bounds,
+// then the table (16-byte padded each).
 size_t tile_smem_bytes(int nh, int CT, int SW, int task) {
-  return pad16((size_t)(nh + 1) * 4)
+  return pad16((size_t)nh * 8) + pad16((size_t)(nh + 1) * 4)
       + pad16((size_t)nh * CT * SW * (task == CLASSIFICATION ? 4 : 8));
 }
 
@@ -346,15 +379,18 @@ __device__ __forceinline__ int leaf_of_pos(const int* bound, int nh, int k) {
 // the natural row order (the tile is the whole table); else a range of the
 // tree's bucketed list.  Classification: int32 count cells (S per
 // category, into `out`); regression: uint64 fixed-point cells (3 per
-// category, into `acc`).
+// category, into `acc`).  Each leaf's cells go to its table slot
+// (`table_slot`); a block none of whose leaves has a table returns at once,
+// and rows of a leaf without one are not gathered.
 template <int TASK, bool NATURAL>
 __global__ void __launch_bounds__(TILE_THREADS)
 cat_tile(const int* __restrict__ x, const int* __restrict__ leaf,
          const float* __restrict__ w, const float* __restrict__ y,
          const int* __restrict__ rows, const float* __restrict__ wl,
          const float* __restrict__ yl, const int* __restrict__ lstart,
-         const int* __restrict__ work, int pack, int m, int n, int L1, int V,
-         int S, int LT, int CT, int nCT, double s0, double s1, double s2,
+         const int* __restrict__ work, const int* __restrict__ slot,
+         long long nslot, int pack, int m, int n, int L1, int V, int S,
+         int LT, int CT, int nCT, double s0, double s1, double s2,
          unsigned* __restrict__ out, unsigned long long* __restrict__ acc) {
   extern __shared__ __align__(16) unsigned char smem[];
   const int* wk = work + (size_t)(blockIdx.x / nCT) * WORK;
@@ -365,10 +401,25 @@ cat_tile(const int* __restrict__ x, const int* __restrict__ leaf,
   const int c0 = ct * CT, cw = min(V, c0 + CT) - c0;
   const int SW = TASK == CLASSIFICATION ? S : 3;     // cells per category
   const int cells = nh * cw * SW;
-  // shared memory: the tile's list bounds (nh+1 ints), then the table,
-  // each padded to 16 bytes (tile_smem_bytes)
-  int* bound = reinterpret_cast<int*>(smem);
-  unsigned char* table = smem + pad16((size_t)(nh + 1) * 4);
+  // shared memory: the tile's table slots (nh), its list bounds (nh+1
+  // ints), then the table, each padded to 16 bytes (tile_smem_bytes)
+  long long* sl = reinterpret_cast<long long*>(smem);
+  int* bound = reinterpret_cast<int*>(smem + pad16((size_t)nh * 8));
+  unsigned char* table = smem + pad16((size_t)nh * 8)
+      + pad16((size_t)(nh + 1) * 4);
+  int any = 0;
+  for (int i = threadIdx.x; i < nh; i += TILE_THREADS) {
+    sl[i] = table_slot(slot, nslot, t, m, j, L1, h0 + i);
+    any |= sl[i] >= 0;
+  }
+  if (!__syncthreads_or(any)) return;     // no leaf of the tile has a table
+  // the leaves' tables one run of slots (every tile of an all-true map,
+  // every one-leaf tile): every row's leaf has a table, so no row waits on
+  // a slot read before its gather, and the tile is flushed as one span
+  int run = 1;
+  for (int i = threadIdx.x; i < nh; i += TILE_THREADS)
+    run &= sl[i] == sl[0] + i;
+  const bool whole = __syncthreads_and(run) && sl[0] >= 0;
   unsigned* tu = reinterpret_cast<unsigned*>(table);
   unsigned long long* tq = reinterpret_cast<unsigned long long*>(table);
   const size_t cell_bytes = TASK == CLASSIFICATION ? 4 : 8;
@@ -397,7 +448,7 @@ cat_tile(const int* __restrict__ x, const int* __restrict__ leaf,
           const int lf = leaf[tn + k];
           ww[u] = w[tn + k];
           r[u] = k;
-          if (active(ww[u], lf, L1)) {
+          if (active(ww[u], lf, L1) && (whole || sl[lf] >= 0)) {
             hl[u] = lf;                 // the tile is every leaf: h0 = 0
             yy[u] = y[k];
           }
@@ -412,6 +463,7 @@ cat_tile(const int* __restrict__ x, const int* __restrict__ leaf,
             yy[u] = __ldcs(yl + tn + k);
           }
           hl[u] = nh == 1 ? 0 : leaf_of_pos(bound, nh + 1, k);
+          if (!whole && sl[hl[u]] < 0) hl[u] = -1;   // a leaf without one
         }
       }
     }
@@ -441,31 +493,42 @@ cat_tile(const int* __restrict__ x, const int* __restrict__ leaf,
   }
   __syncthreads();
 
-  // flush: cell i of the tile is (leaf h0 + i / (cw*SW), category
-  // c0 + (i % (cw*SW)) / SW, stat i % SW); a leaf's cells are contiguous
-  const int span = cw * SW;
-  const size_t base = (((size_t)t * m + j) * L1 + h0) * V * SW
-      + (size_t)c0 * SW;
-  if (!atomic && (nh == 1 || cw == V)) {        // one contiguous span
-    if (TASK == CLASSIFICATION && aligned16(out + base) &&
-        (cells & 3) == 0) {
-      uint4* o4 = reinterpret_cast<uint4*>(out + base);
-      for (int i = threadIdx.x; i < cells / 4; i += TILE_THREADS)
-        __stcs(o4 + i, t4[i]);          // streaming stores keep x in L2
-      return;
+  // flush: cell i of the tile is (leaf h0 + i / span, category c0 +
+  // (i % span) / SW, stat i % SW), a leaf's span = cw * SW cells
+  // contiguous; they go to the leaf's table, slot sl[i / span], at
+  // category c0.  Where the slots are one run the whole tile is one span
+  // (a tile of several leaves has every category, c0 = 0, so its leaves'
+  // tables follow each other).  A tile one block takes whole is stored (16
+  // bytes a store where each span starts and ends on 16-byte words), a
+  // split tile's nonzero cells are added.
+  const int span = whole ? cells : cw * SW;
+  const size_t tab = (size_t)V * SW;            // cells of one table
+  constexpr int VW = TASK == CLASSIFICATION ? 4 : 2;   // cells a 16 bytes
+  const void* dst0 = TASK == CLASSIFICATION ? (const void*)out
+                                            : (const void*)acc;
+  const size_t first = (size_t)sl[0] * tab + (size_t)c0 * SW;   // if whole
+  if (!atomic && span % VW == 0 && aligned16(dst0) &&
+      (whole ? first % VW == 0
+             : tab % VW == 0 && ((size_t)c0 * SW) % VW == 0)) {
+    for (int i = threadIdx.x; i < cells / VW; i += TILE_THREADS) {
+      const int hh = i * VW / span;
+      const long long s = sl[hh];
+      if (s < 0) continue;
+      const size_t dst = (size_t)s * tab + (size_t)c0 * SW
+          + (size_t)(i * VW - hh * span);
+      if (TASK == CLASSIFICATION)          // streaming stores keep x in L2
+        __stcs(reinterpret_cast<uint4*>(out + dst), t4[i]);
+      else
+        __stcs(reinterpret_cast<ulonglong2*>(acc + dst),
+               reinterpret_cast<const ulonglong2*>(tq)[i]);
     }
-    if (TASK == REGRESSION && aligned16(acc + base) && (cells & 1) == 0) {
-      ulonglong2* o2 = reinterpret_cast<ulonglong2*>(acc + base);
-      const ulonglong2* s2v = reinterpret_cast<const ulonglong2*>(tq);
-      for (int i = threadIdx.x; i < cells / 2; i += TILE_THREADS)
-        __stcs(o2 + i, s2v[i]);
-      return;
-    }
+    return;
   }
   for (int i = threadIdx.x; i < cells; i += TILE_THREADS) {
-    const int hh = i / span, rem = i - hh * span;
-    const size_t dst = (((size_t)t * m + j) * L1 + h0 + hh) * V * SW
-        + (size_t)c0 * SW + rem;
+    const int hh = i / span;
+    const long long s = sl[hh];
+    if (s < 0) continue;
+    const size_t dst = (size_t)s * tab + (size_t)c0 * SW + (i - hh * span);
     if (TASK == CLASSIFICATION) {
       if (!atomic) __stcs(out + dst, tu[i]);
       else if (tu[i] != 0u) atomicAdd(out + dst, tu[i]);
@@ -500,9 +563,10 @@ cudaError_t launch_tile(dim3 grid, size_t smem, cudaStream_t stream,
                         const int* x, const int* leaf, const float* w,
                         const float* y, const int* rows, const float* wl,
                         const float* yl, const int* lstart, const int* work,
-                        int pack, int m, int n, int L1, int V, int S, int LT,
-                        int CT, int nCT, double s0, double s1, double s2,
-                        unsigned* out, unsigned long long* acc) {
+                        const int* slot, long long nslot, int pack, int m,
+                        int n, int L1, int V, int S, int LT, int CT, int nCT,
+                        double s0, double s1, double s2, unsigned* out,
+                        unsigned long long* acc) {
   auto fn = cat_tile<TASK, NATURAL>;
   if (smem > 48 * 1024) {
     cudaError_t err = cudaFuncSetAttribute(
@@ -510,9 +574,9 @@ cudaError_t launch_tile(dim3 grid, size_t smem, cudaStream_t stream,
     if (err != cudaSuccess) return err;
   }
   fn<<<grid, TILE_THREADS, smem, stream>>>(x, leaf, w, y, rows, wl, yl,
-                                           lstart, work, pack, m, n, L1, V,
-                                           S, LT, CT, nCT, s0, s1, s2, out,
-                                           acc);
+                                           lstart, work, slot, nslot, pack,
+                                           m, n, L1, V, S, LT, CT, nCT, s0,
+                                           s1, s2, out, acc);
   return cudaGetLastError();
 }
 
@@ -557,18 +621,19 @@ extern "C" int cat_bucket_launch(const int* leaf, const float* w,
 
 // The tables of one tree group: plans the work items into `work` (Wmax, 5)
 // int32 scratch (cat_plan; lstart (T, L1+1) list offsets, unused when
-// natural), then builds the tiles.
-// Classification: out (T, m, L1, V, S) int32 counts, split tiles' regions
-// zeroed first (cat_zero_split).
-// Regression: the tiles store or add uint64 cells into acc (T, m, L1, V, 3),
-// zeroed by the caller, which fixed_to_float converts into out.
+// natural), then builds the tiles.  slot (T, m, L1) int32: each (tree,
+// column, leaf)'s table in out / acc, -1 for none, nslot tables in all.
+// Classification: out int32 counts, split tiles' tables zeroed first
+// (cat_zero_split).
+// Regression: the tiles store or add uint64 cells into acc (3 a category),
+// zeroed by the caller, which converts them (cat_fixed_launch).
 static int cat_tables_launch(
     int task, int natural, const int* x, const int* leaf, const float* w,
     const float* y, const int* rows, const float* wl, const float* yl,
-    const int* lstart, int* work, int pack, int Wmax, int m, int n, int T, int L1, int V, int S, int LT, int nLT,
-    int CT, int nCT, int piece,
-    double s0, double s1, double s2, float* out, unsigned long long* acc,
-    void* stream_ptr) {
+    const int* lstart, int* work, const int* slot, long long nslot, int pack,
+    int Wmax, int m, int n, int T, int L1, int V, int S, int LT, int nLT,
+    int CT, int nCT, int piece, double s0, double s1, double s2, float* out,
+    unsigned long long* acc, void* stream_ptr) {
   if (Wmax < 1 || nCT < 1 || m < 1 || m > 65535 || piece < 1 ||
       (long long)Wmax * nCT > 0x7fffffffLL)
     return (int)cudaErrorInvalidValue;
@@ -580,26 +645,22 @@ static int cat_tables_launch(
   const int SW = task == CLASSIFICATION ? S : 3;
   if (task == CLASSIFICATION) {
     cat_zero_split<<<dim3(Wmax, m), BLOCK, 0, st>>>(
-        work, m, L1, V, SW, LT, reinterpret_cast<unsigned*>(out));
+        work, slot, nslot, m, L1, V, SW, LT, reinterpret_cast<unsigned*>(out));
     if ((err = cudaGetLastError()) != cudaSuccess) return (int)err;
   }
   const size_t smem = tile_smem_bytes(LT < L1 ? LT : L1, CT, SW, task);
   const dim3 grid((unsigned)(Wmax * nCT), (unsigned)m);
 #define CAT_TILE(TK, NAT)                                                  \
   launch_tile<TK, NAT>(grid, smem, st, x, leaf, w, y, rows, wl, yl, lstart, \
-                       work, pack, m, n, L1, V, S, LT, CT, nCT, s0, s1, s2,  \
-                       reinterpret_cast<unsigned*>(out), acc)
+                       work, slot, nslot, pack, m, n, L1, V, S, LT, CT, nCT, \
+                       s0, s1, s2, reinterpret_cast<unsigned*>(out), acc)
   if (task == CLASSIFICATION)
     err = natural ? CAT_TILE(CLASSIFICATION, true)
                   : CAT_TILE(CLASSIFICATION, false);
   else
     err = natural ? CAT_TILE(REGRESSION, true) : CAT_TILE(REGRESSION, false);
 #undef CAT_TILE
-  if (err != cudaSuccess || task == CLASSIFICATION) return (int)err;
-  const long long cells = (long long)T * m * L1 * V;
-  fixed_to_float<<<(unsigned)((cells * 3 + BLOCK - 1) / BLOCK), BLOCK, 0,
-                   st>>>(acc, cells, 1.0 / s0, 1.0 / s1, 1.0 / s2, out);
-  return (int)cudaGetLastError();
+  return (int)err;
 }
 
 // The whole of one tree group in one call: bucketing (unless natural),
@@ -607,13 +668,14 @@ static int cat_tables_launch(
 // (T, L1), lstart (T, L1+1), work (Wmax, 5) — natural: work only; lists:
 // float32 scratch (3, T, n) for rows, wl, yl (null when natural), (2, T, n)
 // when `pack` (classification: row * pack + class in `rows`, no yl;
-// pack = S + 1).  out: classification's int32 cells, regression's float32.
+// pack = S + 1).  slot, nslot: as for cat_tables_launch.  out:
+// classification's int32 cells; regression's go to acc.
 extern "C" int cat_hist_launch(
     int task, int natural, const int* x, const int* leaf, const float* w,
-    const float* y, int T, int m, int n, int L1, int V, int S, int LT,
-    int nLT, int CT, int nCT, int R, int NB, int piece, int Wmax, int pack,
-    double s0, double s1, double s2, int* ints, float* lists, float* out,
-    unsigned long long* acc, void* stream_ptr) {
+    const float* y, const int* slot, long long nslot, int T, int m, int n,
+    int L1, int V, int S, int LT, int nLT, int CT, int nCT, int R, int NB,
+    int piece, int Wmax, int pack, double s0, double s1, double s2, int* ints,
+    float* lists, float* out, unsigned long long* acc, void* stream_ptr) {
   int *lstart = nullptr, *rows = nullptr;
   float *wl = nullptr, *yl = nullptr;
   int* work = ints;
@@ -631,8 +693,22 @@ extern "C" int cat_hist_launch(
     if (err != 0) return err;
   }
   return cat_tables_launch(task, natural, x, leaf, w, y, rows, wl, yl, lstart,
-                           work, pack, Wmax, m, n, T, L1, V, S, LT, nLT, CT,
-                           nCT, piece, s0, s1, s2, out, acc, stream_ptr);
+                           work, slot, nslot, pack, Wmax, m, n, T, L1, V, S,
+                           LT, nLT, CT, nCT, piece, s0, s1, s2, out, acc,
+                           stream_ptr);
+}
+
+// Regression's last pass: the uint64 fixed-point sums of `tables` tables
+// (V categories x 3 stats each) to float32, times 1/scale per stat.
+extern "C" int cat_fixed_launch(const unsigned long long* acc,
+                                long long tables, int V, double s0, double s1,
+                                double s2, float* out, void* stream_ptr) {
+  const long long cells = tables * V;
+  if (cells < 1) return 0;
+  fixed_to_float<<<(unsigned)((cells * 3 + BLOCK - 1) / BLOCK), BLOCK, 0,
+                   (cudaStream_t)stream_ptr>>>(acc, cells, 1.0 / s0, 1.0 / s1,
+                                               1.0 / s2, out);
+  return (int)cudaGetLastError();
 }
 
 // The plan alone (for checking cat_plan against its plain version).

@@ -5,9 +5,13 @@ Replaces no TPU kernel: the reference scores its tables with plain jnp
 (`splits.best_categorical_split_from_table`).  Contract, for a batch of T
 trees over m categorical columns:
 
-    tables (T, m, L1, V, S) i32   class counts per (tree, column, leaf,
-                                  category), S >= 2 classes
+    tables (K, V, S) i32          class counts per (table, category),
+                                  S >= 2 classes, as `cat_hist` built them
     cand   (T, m, L1) bool        candidate columns of each leaf
+    slot   (T, m, L1) i32         the table of each (tree, column, leaf),
+                                  -1 for none: the map `cat_hist` was
+                                  given; None: table i is segment i (K =
+                                  T·m·L1, any shape (..., V, S))
     -> gains (T, m, L1) f32, masks (T, m, L1, V) bool (True = LEFT): the
        first best of the V − 1 prefix cuts of the categories ordered by
        P(last class | v), empty ones last, both sides >= min_records
@@ -51,11 +55,16 @@ segments = 0                # (tree, column, leaf) segments launched over
 _scored = {}                # device -> int64 count of candidate segments
 
 
-def breiman_plain(tables, cand, *, impurity="gini", task="classification",
-                  min_records=1.0):
+def breiman_plain(tables, cand, slot=None, *, impurity="gini",
+                  task="classification", min_records=1.0):
     """The plain torch version: `splits.best_categorical_split_from_table`
-    over column chunks of at most CHUNK_ELEMS table elements."""
-    T, m, L1, V, S = tables.shape
+    over column chunks of at most CHUNK_ELEMS table elements, each chunk's
+    tables gathered from their slots into (T, c, L1, V, S), zeros where a
+    segment has none (its gain is −inf either way)."""
+    T, m, L1 = cand.shape
+    V, S = tables.shape[-2:]
+    tables = tables.reshape(-1, V, S)
+    slot = segment_slots(cand) if slot is None else slot
     step = max(1, CHUNK_ELEMS // max(1, T * L1 * V * S))
     gains = torch.empty((T, m, L1), dtype=torch.float32,
                         device=tables.device)
@@ -65,17 +74,38 @@ def breiman_plain(tables, cand, *, impurity="gini", task="classification",
         j1 = min(m, j0 + step)
         gains[:, j0:j1], masks[:, j0:j1] = \
             splits.best_categorical_split_from_table(
-                tables[:, j0:j1], cand[:, j0:j1], impurity, task,
-                min_records)
+                _gather(tables, slot[:, j0:j1]), cand[:, j0:j1], impurity,
+                task, min_records)
     return gains, masks
+
+
+def segment_slots(cand) -> torch.Tensor:
+    """The slot map of tables held one per segment, in (tree, column,
+    leaf) order: segment i's table is table i."""
+    return torch.arange(cand.numel(), dtype=torch.int32,
+                        device=cand.device).view(cand.shape)
+
+
+def _gather(tables, slot):
+    """Tables (K, V, S) as (T, c, L1, V, S) of `slot`'s segments: each
+    one's table, zeros where the slot is −1 (a gather, no host sync)."""
+    V, S = tables.shape[-2:]
+    keep = (slot >= 0)[..., None, None]
+    if tables.shape[0] == 0:
+        return torch.zeros(slot.shape + (V, S), dtype=tables.dtype,
+                           device=tables.device)
+    got = tables.index_select(0, slot.clamp(min=0).reshape(-1).long())
+    return torch.where(keep, got.view(slot.shape + (V, S)),
+                       torch.zeros((), dtype=tables.dtype,
+                                   device=tables.device))
 
 
 def _lib():
     lib = _build.load("breiman")
     if not getattr(lib, "_typed", False):
         p, i, ll = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
-        lib.brm_launch.argtypes = [p, p, ll, i, i, i, ctypes.c_float,
-                                   p, p, p, p, ll, p]
+        lib.brm_launch.argtypes = [p, p, p, ll, ll, i, i, i,
+                                   ctypes.c_float, p, p, p, p, ll, p]
         lib.brm_launch.restype = i
         lib.brm_workspace_bytes.argtypes = [ll, i, i]
         lib.brm_workspace_bytes.restype = ll
@@ -83,20 +113,30 @@ def _lib():
     return lib
 
 
-def _check_inputs(tables, cand):
-    if tables.dtype != torch.int32 or tables.dim() != 5:
-        raise ValueError(f"breiman: tables must be int32 (T, m, L1, V, S), "
-                         f"got {tables.dtype} {tuple(tables.shape)}")
-    if cand.dtype != torch.bool or tuple(cand.shape) != tuple(
-            tables.shape[:3]):
-        raise ValueError(f"breiman: cand must be bool {tuple(tables.shape[:3])}"
-                         f", got {cand.dtype} {tuple(cand.shape)}")
-    for name, t in (("tables", tables), ("cand", cand)):
+def _check_inputs(tables, cand, slot):
+    if tables.dtype != torch.int32 or tables.dim() < 3:
+        raise ValueError(f"breiman: tables must be int32 (K, V, S), got "
+                         f"{tables.dtype} {tuple(tables.shape)}")
+    if cand.dtype != torch.bool or cand.dim() != 3:
+        raise ValueError(f"breiman: cand must be bool (T, m, L1), got "
+                         f"{cand.dtype} {tuple(cand.shape)}")
+    if slot is None:
+        if tables.numel() != cand.numel() * tables.shape[-2] * \
+                tables.shape[-1]:
+            raise ValueError(f"breiman: without a slot map the tables must "
+                             f"be one per segment, {tuple(cand.shape)}, got "
+                             f"{tuple(tables.shape)}")
+    elif slot.dtype != torch.int32 or slot.shape != cand.shape:
+        raise ValueError(f"breiman: slot must be int32 {tuple(cand.shape)}, "
+                         f"got {slot.dtype} {tuple(slot.shape)}")
+    for name, t in (("tables", tables), ("cand", cand), ("slot", slot)):
+        if t is None:
+            continue
         if not t.is_contiguous():
             raise ValueError(f"breiman: {name} must be contiguous")
-    if cand.device != tables.device:
-        raise ValueError(f"breiman: cand is on {cand.device}, tables on "
-                         f"{tables.device}")
+        if t.device != tables.device:
+            raise ValueError(f"breiman: {name} is on {t.device}, tables "
+                             f"on {tables.device}")
 
 
 def scored_counter(device) -> torch.Tensor:
@@ -110,22 +150,25 @@ def scored_counter(device) -> torch.Tensor:
     return _scored[device]
 
 
-def breiman(tables, cand, *, impurity="gini", min_records=1.0):
+def breiman(tables, cand, slot=None, *, impurity="gini", min_records=1.0):
     """Best Breiman split per (tree, column, leaf) of classification count
-    tables: (gains (T, m, L1), masks (T, m, L1, V)).
+    tables: (gains (T, m, L1), masks (T, m, L1, V)).  A candidate's table
+    is at its `slot` (the map `cat_hist` built the tables with; None: one
+    table per segment, in order).
 
     CUDA tensors launch the kernel, which takes int32 counts only (as
     `cat_hist` gives them); CPU tensors take the plain version.
     """
     if tables.device.type == "cpu":
-        return breiman_plain(tables, cand, impurity=impurity,
+        return breiman_plain(tables, cand, slot, impurity=impurity,
                              min_records=min_records)
     if tables.device.type != "cuda":
         raise ValueError(f"breiman runs on CUDA or CPU, not {tables.device}")
-    _check_inputs(tables, cand)
+    _check_inputs(tables, cand, slot)
     if impurity not in IMPURITY:
         raise ValueError(f"breiman scores gini or entropy, not {impurity!r}")
-    T, m, L1, V, S = tables.shape
+    T, m, L1 = cand.shape
+    V, S = tables.shape[-2:]
     dev = tables.device
     gains = torch.empty((T, m, L1), dtype=torch.float32, device=dev)
     masks = torch.empty((T, m, L1, V), dtype=torch.bool, device=dev)
@@ -133,6 +176,8 @@ def breiman(tables, cand, *, impurity="gini", min_records=1.0):
     if nseg == 0 or V == 0:
         masks.zero_()
         return gains.fill_(splits.NEG), masks
+    slot = segment_slots(cand) if slot is None else slot
+    nslot = tables.numel() // (V * S)
     lib = _lib()
     ws_bytes = lib.brm_workspace_bytes(nseg, V, S)
     if ws_bytes < 0:
@@ -142,7 +187,7 @@ def breiman(tables, cand, *, impurity="gini", min_records=1.0):
           if ws_bytes else None)
     P = _build.ptr
     err = lib.brm_launch(
-        P(tables), P(cand.view(torch.uint8)), nseg, V, S,
+        P(tables), P(cand.view(torch.uint8)), P(slot), nslot, nseg, V, S,
         IMPURITY[impurity], float(min_records), P(scored_counter(dev)),
         P(gains), P(masks.view(torch.uint8)),
         P(ws) if ws is not None else None, ws_bytes,

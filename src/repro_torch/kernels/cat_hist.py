@@ -10,18 +10,32 @@ categorical columns of n rows:
     w    (T, n) f32      bag weight per row (classification: a bag
                          count, an integer)
     y    (n,)   f32      class id (classification) or target (regression)
-    -> (T, m, L1, V, S): per (tree, column, leaf, category) the sum of the
-       in-bag rows' stats: int32 class counts w·onehot(y) (classification)
-       or float32 [w, wy, wy²] (regression)
+    slot (T, m, L1) i32  each (tree, column, leaf)'s table, -1 for none:
+                         `candidate_slots(cand)` of the candidate mask, or
+                         None for every one (`full_slots`)
+    -> per (tree, column, leaf, category) the sum of the in-bag rows'
+       stats: int32 class counts w·onehot(y) (classification) or float32
+       [w, wy, wy²] (regression), as (V, S) tables —
+         slot:      (K, V, S), only the candidates', each at its slot (an
+                    exclusive prefix over the flattened mask, made on the
+                    mask's device), K = T·L1·min(m′, m) (`table_count`),
+                    m′ the candidate columns a leaf draws: the host sizes
+                    the output with no read of the mask;
+         slot None: every (tree, column, leaf)'s, the same buffer viewed
+                    as (T, m, L1, V, S).
 
 The per-row state is read once as (T, n), never broadcast to (m, n).
 CUDA source: `repro_torch/csrc/cat_hist.cu`, which states the bound and
 the design: the rows are bucketed by leaf (`leaf_buckets`), each table
-tile is built in a block's shared memory and written once, and the host
-plans the tiles (`tile_plan`) and the blocks' row ranges (`tile_work`)
-from the per-leaf row counts.  `cat_hist` launches it for CUDA tensors
-and takes the plain version (one flat `index_add_` per column) only for
-CPU tensors; so do `leaf_buckets` and its plain version.
+tile is built in a block's shared memory and written once, the host plans
+the tiles (`tile_plan`), the card the blocks' row ranges (`tile_work`),
+and a block whose leaves have no table returns before it reads a row.
+`cat_hist` launches it for CUDA tensors and takes the plain version (one
+flat `index_add_` per column, then the candidates' tables gathered,
+`compact_tables`) only for CPU tensors; so do `leaf_buckets` and its plain
+version.  The slot map is the one the Breiman scorer is given, so this
+module alone decides where a table lies.  The counters `full_tables` and `slot_tables` add up T·m·L1 and
+K over the calls: their ratio is the share of the tables built.
 
 Exactness: classification tables are int32 counts, summed with integer
 atomics and exact to 2^31 in any order, so the kernel gives the plain
@@ -49,6 +63,10 @@ from repro_torch.kernels import _build
 TASK = {"classification": 0, "regression": 1}
 
 launches = 0                # kernel launches (tree groups of <= 8 trees)
+full_tables = 0             # tables of every (tree, column, leaf): T·m·L1
+slot_tables = 0             # tables the output holds: sum of K (calls on
+                            # any device; slot/full: how far the compact
+                            # layout cuts the work)
 
 
 def cat_hist_plain(x, leaf, w, y, *, L1, V, num_stats,
@@ -97,13 +115,15 @@ def _lib():
     lib = _build.load("cat_hist")
     if not getattr(lib, "_typed", False):
         p, i, d = ctypes.c_void_p, ctypes.c_int, ctypes.c_double
+        ll = ctypes.c_longlong
         lib.cat_bucket_launch.argtypes = [p] * 3 + [i] * 6 + [p] * 7
-        lib.cat_hist_launch.argtypes = ([i, i] + [p] * 4 + [i] * 15
+        lib.cat_hist_launch.argtypes = ([i, i] + [p] * 5 + [ll] + [i] * 15
                                         + [d] * 3 + [p] * 5)
+        lib.cat_fixed_launch.argtypes = [p, ll, i] + [d] * 3 + [p, p]
         lib.cat_plan_launch.argtypes = [p] + [i] * 8 + [p, p]
         for fn in (lib.cat_bucket_launch, lib.cat_hist_launch,
-                   lib.cat_plan_launch, lib.cat_hist_max_trees,
-                   lib.cat_hist_smem_optin):
+                   lib.cat_fixed_launch, lib.cat_plan_launch,
+                   lib.cat_hist_max_trees, lib.cat_hist_smem_optin):
             fn.restype = i
         lib.max_trees = lib.cat_hist_max_trees()
         lib.smem_optin = lib.cat_hist_smem_optin()
@@ -189,14 +209,14 @@ def tile_plan(L1: int, V: int, S: int, task: str = "classification",
               budget: int = SMEM_BUDGET) -> TilePlan:
     """The largest tiles that fit in `budget` bytes of shared memory: all
     categories of as many leaves as fit, else category tiles of one leaf
-    (cells of S int32 for classification, 3 uint64 for regression; 4
-    bytes per leaf and one more for the tile's list bounds; 16-byte
-    padding after each part)."""
+    (cells of S int32 for classification, 3 uint64 for regression; per
+    leaf 8 bytes of table slot and 4 of list bound, and one more bound;
+    16-byte padding after each part)."""
     cell = S * 4 if task == "classification" else 24
-    CT = max(1, min(V, (budget - 40) // cell))
+    CT = max(1, min(V, (budget - 48) // cell))
     nCT = -(-V // CT)
     CT = -(-V // nCT)
-    LT = (max(1, min(L1, (budget - 36) // (V * cell + 4))) if nCT == 1
+    LT = (max(1, min(L1, (budget - 52) // (V * cell + 12))) if nCT == 1
           else 1)
     return TilePlan(LT=LT, nLT=-(-L1 // LT), CT=CT, nCT=nCT)
 
@@ -339,21 +359,79 @@ def tile_work(lstart, plan: TilePlan, n: int, T: int, *,
     return torch.from_numpy(work.astype(np.int32))
 
 
-def zero_split_tiles(out, work, plan: TilePlan) -> None:
-    """The plain version of `cat_zero_split`: zero the region of `out`
-    (T, m, L1, V, S) of every (tree, leaf tile) that `work` splits over
-    several blocks (their atomic adds land there); every other cell is
-    stored whole by its one block."""
+def zero_split_tiles(out, work, plan: TilePlan, slot) -> None:
+    """The plain version of `cat_zero_split`: zero the table of every leaf
+    of every (tree, leaf tile) that `work` splits over several blocks
+    (their atomic adds land there); every other cell is stored whole by its
+    one block.  `out` (K, V, S) holds the tables at `slot` (T, m, L1);
+    leaves with slot -1 have none."""
     for t, lt in work[work[:, 4] == 1, :2].tolist():
-        out[t, :, lt * plan.LT:(lt + 1) * plan.LT].zero_()
+        s = slot[t, :, lt * plan.LT:(lt + 1) * plan.LT].reshape(-1)
+        out[s[s >= 0].long()] = 0
 
 
-def _group_tables(lib, plan, x, leaf, w, y, L1, V, S, task, scales, out,
-                  acc):
-    """One tree group's tables into `out` (T, m, L1, V, S), regression's
-    int64 sums into the zeroed `acc` of the same shape: one call that
-    buckets the rows (unless the plan is natural), plans the work on the
-    card and builds the tiles; the wrapper only allocates."""
+def candidate_slots(cand) -> torch.Tensor:
+    """The compact layout's slot map (T, m, L1) int32 of a candidate mask
+    `cand` (T, m, L1) bool: the candidates numbered in (tree, column, leaf)
+    order, an exclusive prefix over the flattened mask, and -1 elsewhere.
+    On the mask's device, with no host sync."""
+    flat = cand.reshape(-1)
+    upto = torch.cumsum(flat, 0, dtype=torch.int32)       # inclusive
+    return torch.where(flat, upto, 0).sub_(1).view(cand.shape)
+
+
+def full_slots(T: int, m: int, L1: int, device=None) -> torch.Tensor:
+    """The slot map of a mask that is all true: (t·m + j)·L1 + h, a table
+    for every (tree, column, leaf) in the order of (T, m, L1, V, S)."""
+    return torch.arange(T * m * L1, dtype=torch.int32,
+                        device=device).view(T, m, L1)
+
+
+def table_count(T: int, m: int, L1: int,
+                m_prime: Optional[int] = None) -> int:
+    """Tables the compact layout holds, K = T·L1·min(m′, m): a leaf draws
+    at most m′ candidate columns, so its candidates among these m columns
+    are at most min(m′, m) (`m_prime` None: m)."""
+    K = T * L1 * (m if m_prime is None else min(m_prime, m))
+    if K >= 2**31:
+        raise ValueError(f"cat_hist: {K} tables, past int32 slots")
+    return K
+
+
+def compact_tables(full, slot, K: int):
+    """The (K, V, S) tables of `slot` (T, m, L1) out of full tables (T,
+    m, L1, V, S): each (tree, column, leaf)'s at its slot, zeros in the
+    slots no one has."""
+    flat = slot.reshape(-1)
+    keep = flat >= 0
+    out = full.new_zeros((K,) + tuple(full.shape[-2:]))
+    out[flat[keep].long()] = full.reshape(
+        (-1,) + tuple(full.shape[-2:]))[keep]
+    return out
+
+
+def _check_slot(slot, T, m, L1, K, dev):
+    """The slot map's type, shape and device; that no slot is K or past
+    it (more candidates than `m_prime` allows) is asserted on the map's
+    device, with no host sync: a CPU map raises here, a CUDA one at the
+    next sync."""
+    if (slot.dtype != torch.int32 or tuple(slot.shape) != (T, m, L1)
+            or slot.device != dev):
+        raise ValueError(f"cat_hist: slot must be int32 {(T, m, L1)} on "
+                         f"{dev}, got {slot.dtype} {tuple(slot.shape)} on "
+                         f"{slot.device}")
+    torch._assert_async((slot < K).all(),
+                        f"cat_hist: a slot past the {K} tables that "
+                        f"m_prime allows")
+
+
+def _group_tables(lib, plan, x, leaf, w, y, L1, V, S, task, scales, slot, K,
+                  out, acc):
+    """One tree group's tables into `out` (K, V, S), regression's int64
+    sums into the zeroed `acc` of the same shape, at the slots of `slot`,
+    the group's (T, m, L1) slice of the map.  One call that buckets the
+    rows (unless the plan is natural), plans the work on the card and
+    builds the tiles; the wrapper only allocates."""
     T, n = leaf.shape
     m = x.shape[0]
     dev = x.device
@@ -372,60 +450,102 @@ def _group_tables(lib, plan, x, leaf, w, y, L1, V, S, task, scales, out,
     ints = torch.empty(n_ints, dtype=torch.int32, device=dev)
     s0, s1, s2 = scales if scales else (1.0, 1.0, 1.0)
     err = lib.cat_hist_launch(
-        TASK[task], int(plan.natural), P(x), P(leaf), P(w), P(y), T, m, n,
-        L1, V, S, plan.LT, plan.nLT, plan.CT, plan.nCT, chunk, nb,
-        piece, W, pack, s0, s1, s2,
+        TASK[task], int(plan.natural), P(x), P(leaf), P(w), P(y),
+        P(slot), K, T, m, n, L1, V, S, plan.LT,
+        plan.nLT, plan.CT, plan.nCT, chunk, nb, piece, W, pack, s0, s1, s2,
         P(ints), None if lists is None else P(lists), P(out),
         None if acc is None else P(acc), _build.stream_ptr(dev))
     _build.check(err, "cat_hist launch")
 
 
 def cat_hist(x, leaf, w, y, *, L1, V, num_stats, task="classification",
-             scales=None, fixed=False):
-    """Count tables (T, m, L1, V, S): the kernel for CUDA tensors, the
-    plain version for CPU tensors.  Classification tables are int32 class
-    counts, exact to 2^31 (the weights are bag counts, integers).
+             scales=None, fixed=False, slot=None, m_prime=None):
+    """Count tables: the kernel for CUDA tensors, the plain version for CPU
+    tensors.  Classification tables are int32 class counts, exact to 2^31
+    (the weights are bag counts, integers).
+
+    Layout: `slot` (T, m, L1) int32, `candidate_slots(cand)` of the
+    candidate mask: (K, V, S), a table only for each candidate (tree,
+    column, leaf), at its slot, K = `table_count(T, m, L1, m_prime)`
+    (`m_prime`: the most candidate columns a leaf draws; slots past the
+    last candidate are left unwritten by the kernel, zero in the plain
+    version).  `slot` None: `full_slots`, a table for every (tree, column,
+    leaf), returned as (T, m, L1, V, S).  A table holds the same counts in
+    either.
 
     Regression only: `scales` (three powers of two) replaces the scales
     picked from these rows, and `fixed=True` returns the int64 fixed-point
     sums instead of the float32 tables.  Row shards pass the scales of the
     whole row set and add their sums before one `from_fixed_point`, which
     gives the one-device table bit for bit."""
+    T, n = leaf.shape
+    m = x.shape[0]
+    S = num_stats
+    every = slot is None
+    K = table_count(T, m, L1, None if every else m_prime)
+    if not every:
+        _check_slot(slot, T, m, L1, K, x.device)
+    global full_tables, slot_tables
+    full_tables += T * m * L1
+    slot_tables += K
     if x.device.type == "cpu":
-        return cat_hist_plain(x, leaf, w, y, L1=L1, V=V, num_stats=num_stats,
+        full = cat_hist_plain(x, leaf, w, y, L1=L1, V=V, num_stats=S,
                               task=task, scales=scales, fixed=fixed)
+        return full if every else compact_tables(full, slot, K)
     if x.device.type != "cuda":
         raise ValueError(f"cat_hist runs on CUDA or CPU, not {x.device}")
     _check_inputs(x, leaf, w, y)
     if task == "regression" and num_stats != 3:
         raise ValueError("cat_hist: regression has 3 stats per row")
-    T, n = leaf.shape
-    m = x.shape[0]
-    S = num_stats
     lib = _lib()
     plan = tile_plan(L1, V, S, task, min(SMEM_BUDGET, lib.smem_optin))
-    out = torch.empty((T, m, L1, V, S), dtype=torch.int32
+    if every:
+        slot = full_slots(T, m, L1, x.device)
+    out = torch.empty((K, V, S), dtype=torch.int32
                       if task == "classification" else torch.float32,
                       device=x.device)
     acc = None
     if task == "regression":
         if scales is None:
             scales = fixed_point_scales(leaf, w, y, L1)
-        acc = torch.zeros((T, m, L1, V, S), dtype=torch.int64,
-                          device=x.device)
+        acc = torch.zeros((K, V, S), dtype=torch.int64, device=x.device)
     else:
         _check_fixed(task, scales, fixed)
     group = lib.max_trees
     global launches
-    for t0 in range(0, T, group):
-        t1 = min(T, t0 + group)
+    for t0 in range(0, T, group):       # a group's slots point into the
+        t1 = min(T, t0 + group)         # whole buffer
         _group_tables(lib, plan, x, leaf[t0:t1], w[t0:t1], y, L1, V, S, task,
-                      scales, out[t0:t1],
-                      None if acc is None else acc[t0:t1])
+                      scales, slot[t0:t1], K, out, acc)
         launches += 1
-    return acc if fixed else out
+    if acc is not None and not fixed:
+        _build.check(lib.cat_fixed_launch(
+            _build.ptr(acc), K, V, *scales, _build.ptr(out),
+            _build.stream_ptr(x.device)), "cat_hist fixed point")
+    got = acc if fixed else out
+    return got.view(T, m, L1, V, S) if every else got
 
 
-def bound_bytes(T: int, m: int, n: int, L1: int, V: int, S: int) -> int:
-    """Bytes cat_hist must move: each input read once, the table written."""
-    return m * n * 4 + T * n * 8 + n * 4 + T * m * L1 * V * S * 4
+def bound_bytes(T: int, m: int, n: int, L1: int, V: int, S: int,
+                tables: Optional[int] = None,
+                gathered: Optional[int] = None) -> int:
+    """Bytes cat_hist must move: the row state read once (each tree's leaf
+    id and weight, the label), the category of each row a table counts
+    read once for it (`gathered`: the in-bag rows of the candidate leaves,
+    summed over the trees and columns, `gathered_rows`; default every row
+    of every column), and the tables written (`tables` of them: the
+    candidates' in the compact layout; default all T·m·L1)."""
+    tables = T * m * L1 if tables is None else tables
+    gathered = m * n if gathered is None else gathered
+    return gathered * 4 + T * n * 8 + n * 4 + tables * V * S * 4
+
+
+def gathered_rows(leaf, w, slot, L1: int) -> int:
+    """The (tree, column, row) triples whose category a table counts: per
+    tree, the in-bag rows of each open leaf times the columns that have a
+    table there (slot >= 0).  Syncs: for measurements only."""
+    T = leaf.shape[0]
+    rows = torch.stack([torch.bincount(
+        leaf[t][(w[t] > 0) & (leaf[t] > 0)].long(), minlength=L1)[:L1]
+        for t in range(T)])                                     # (T, L1)
+    return int(((slot >= 0).sum(1) * rows).sum().item())

@@ -40,13 +40,18 @@ def split_scan_supersplit(sorted_vals, sorted_idx, leaf_of, w, labels, cand,
 
 def categorical_tables(cat_cols, leaf_of, w, labels, *, V, Lp,
                        task="classification", num_classes=2, scales=None,
-                       fixed=False):
-    """Count tables (T, m_cat, Lp+1, V, S) through the `cat_hist` kernel:
-    int32 class counts for classification (the bag weights are integers;
-    exact to 2^31), float32 for regression.
+                       fixed=False, slot=None, m_prime=None):
+    """Count tables through the `cat_hist` kernel: int32 class counts for
+    classification (the bag weights are integers; exact to 2^31), float32
+    for regression.
 
     cat_cols (m_cat, n) column-major categories; leaf_of/w (T, n);
     labels (n,).  V is the (max) arity every column's table is padded to.
+    With `slot` (T, m_cat, Lp+1) int32, `cat_hist.candidate_slots(cand)`,
+    the tables are compact, (K, V, S): one for each candidate (tree,
+    column, leaf) only, at its slot, K = T·(Lp+1)·min(m_prime, m_cat)
+    (`m_prime`: the candidate columns a leaf draws).  Without `slot`,
+    every (tree, column, leaf)'s: (T, m_cat, Lp+1, V, S).
     Regression only: explicit fixed-point `scales`, and `fixed=True` for
     the int64 sums (`cat_hist.cat_hist`).
     """
@@ -54,7 +59,7 @@ def categorical_tables(cat_cols, leaf_of, w, labels, *, V, Lp,
         cat_cols.contiguous(), leaf_of.contiguous(), w.contiguous(),
         labels.to(torch.float32).contiguous(), L1=Lp + 1, V=V,
         num_stats=stat_dim(num_classes, task), task=task, scales=scales,
-        fixed=fixed)
+        fixed=fixed, slot=slot, m_prime=m_prime)
 
 
 def feature_tables(bin_of, slots, w, labels, *, B, W,
@@ -75,10 +80,11 @@ def feature_tables(bin_of, slots, w, labels, *, B, W,
         fixed=fixed)
 
 
-def breiman_splits(tables, cand, impurity="gini", min_records=1.0):
+def breiman_splits(tables, cand, impurity="gini", min_records=1.0,
+                   slot=None):
     """The best Breiman split per (tree, column, leaf) of classification
-    count tables (T, m_cat, L1, V, S) (int32, as `categorical_tables`
-    gives them), through the `breiman` kernel: gains (T, m_cat, L1) and
-    left-masks (T, m_cat, L1, V); cand (T, m_cat, L1)."""
-    return breiman.breiman(tables.contiguous(), cand.contiguous(),
+    count tables (int32, as `categorical_tables` gives them for `slot`),
+    through the `breiman` kernel: gains (T, m_cat, L1) and left-masks (T,
+    m_cat, L1, V); cand (T, m_cat, L1)."""
+    return breiman.breiman(tables.contiguous(), cand.contiguous(), slot,
                            impurity=impurity, min_records=min_records)

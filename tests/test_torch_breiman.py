@@ -160,8 +160,8 @@ def test_masks_of_invalid_segments_never_reach_a_tree(monkeypatch):
     score = engines._score_tables
     zeroed = []
 
-    def zero_invalid(tables, cand, st):
-        g, mk = score(tables, cand, st)
+    def zero_invalid(tables, cand, st, slot=None):
+        g, mk = score(tables, cand, st, slot)
         bad = ~torch.isfinite(g)
         zeroed.append(int(mk[bad].sum()))
         return g, mk & ~bad[..., None]
@@ -351,8 +351,8 @@ def test_multiclass_forest_on_card_equals_plain_scorer(cuda, monkeypatch,
     got = fit()
     assert breiman.launches > before
 
-    def plain(tables, cand, impurity="gini", min_records=1.0):
-        return breiman.breiman_plain(tables, cand, impurity=impurity,
+    def plain(tables, cand, impurity="gini", min_records=1.0, slot=None):
+        return breiman.breiman_plain(tables, cand, slot, impurity=impurity,
                                      min_records=min_records)
 
     monkeypatch.setattr(ops, "breiman_splits", plain)

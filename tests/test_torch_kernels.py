@@ -329,7 +329,8 @@ def test_tile_plan_fits_shared_memory_and_covers_the_table(L1, V, S, task):
     cell = S * 4 if task == "classification" else 24
     nh = min(plan.LT, L1)
     pad = lambda b: -(-b // 16) * 16            # csrc tile_smem_bytes
-    assert pad(nh * plan.CT * cell) + pad((nh + 1) * 4) <= budget
+    assert (pad(nh * 8) + pad((nh + 1) * 4) + pad(nh * plan.CT * cell)
+            <= budget)
     assert plan.nCT * plan.CT >= V > (plan.nCT - 1) * plan.CT
     assert plan.nLT * plan.LT >= L1 > (plan.nLT - 1) * plan.LT
     assert plan.LT == 1 or plan.nCT == 1
@@ -349,7 +350,8 @@ def _emulate_cat_tiles(x, leaf, w, y, L1, V, S, task, budget, min_piece,
     work = cat_hist.tile_work(lstart, plan, n, T, target=target,
                               min_piece=min_piece)
     out = torch.full((T, m, L1, V, S), float("nan"))
-    cat_hist.zero_split_tiles(out, work, plan)
+    cat_hist.zero_split_tiles(out.view(-1, V, S), work, plan,
+                              cat_hist.full_slots(T, m, L1))
     stats = torch.from_numpy(np.asarray(
         [np.eye(S, dtype=np.float32)[int(c)] if 0 <= c < S else
          np.zeros(S, np.float32) for c in y.numpy()]))          # (n, S)
